@@ -1,0 +1,60 @@
+"""Carry filter state and parameters across from monorfs_tpu.
+
+The JAX package's arrays arrive as numpy (np.asarray of each field), so this
+module imports neither JAX nor the JAX package. The system has no learned
+weights: the parameters and the filter state are what must match between
+the two packages."""
+
+import numpy as np
+import torch
+
+from . import resolve_device
+from .gm.mixture import SGM
+from .sim.vehicle import VehicleState
+from .slam import phd
+
+_PARAM_FIELDS = (
+    "motion_cov", "meas_cov", "pd", "clutter_density", "birth_weight",
+    "birth_cov", "min_weight", "merge_threshold", "exploration_threshold",
+    "density_radius", "min_effective_particle", "visibility_ramp", "dt",
+)
+
+
+def _t(x, dtype, dev):
+    return torch.tensor(np.array(x), dtype=dtype, device=dev)
+
+
+def phd_params(fields, dtype=torch.float32, device="cuda"):
+    """PHDParams from a mapping of the JAX PHDParams fields (e.g.
+    `{k: np.asarray(v) for k, v in params._asdict().items()}`). The JAX
+    depth_map is not carried: PRM3D has no depth occlusion."""
+    return phd.make_params(
+        dtype=dtype, device=device, **{k: np.asarray(fields[k]) for k in _PARAM_FIELDS}
+    )
+
+
+def phd_state(pose, logweight, maps, best, ancestor, dtype=torch.float32, device="cuda"):
+    """PHDState from numpy: pose [P, S], logweight [P], the 10 SGM leaves
+    [P, K] (mx, my, mz, cxx, cxy, cxz, cyy, cyz, czz, logw), best [] and
+    ancestor [P]."""
+    dev = resolve_device(device)
+    leaves = list(maps)
+    if len(leaves) != 10:
+        raise ValueError(f"expected the 10 SGM leaves, got {len(leaves)}")
+    return phd.PHDState(
+        pose=_t(pose, dtype, dev),
+        logweight=_t(logweight, dtype, dev),
+        maps=SGM(*[_t(leaf, dtype, dev) for leaf in leaves]),
+        best=_t(best, torch.int64, dev).reshape(()),
+        ancestor=_t(ancestor, torch.int64, dev),
+    )
+
+
+def vehicle_state(pose, landmarks, landmark_mask, dtype=torch.float32, device="cuda"):
+    """VehicleState from numpy: pose [S], landmarks [L, 3], mask [L]."""
+    dev = resolve_device(device)
+    return VehicleState(
+        pose=_t(pose, dtype, dev),
+        landmarks=_t(landmarks, dtype, dev),
+        landmark_mask=_t(landmark_mask, torch.bool, dev),
+    )

@@ -1,0 +1,70 @@
+"""Batched association beam scan: the Hopper counterpart of
+monorfs_tpu/slam/beam_pallas.py::beam_scan_batch (kernel: csrc/beam_scan.cu).
+
+beam_scan_batch launches the CUDA kernel for CUDA tensors and runs the plain
+PyTorch version (association.beam_scan, the same function with the same
+semantics) for CPU tensors. The two are bit-identical."""
+
+import ctypes
+import functools
+
+import torch
+
+from .. import _build
+from .association import beam_scan as beam_scan_plain
+
+
+@functools.cache
+def _launcher():
+    return _build.function(
+        "beam_scan_launch",
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    )
+
+
+@functools.cache
+def smem_bytes(c, beam_width, n_words):
+    """Shared memory one block of the kernel asks for at this shape."""
+    fn = _build.function("beam_scan_smem_bytes", [ctypes.c_int] * 3, ctypes.c_size_t)
+    return fn(c, beam_width, n_words)
+
+
+def beam_scan_batch(base, opt_delta, word_k, bit_k, beam_width, n_words):
+    """base [P] f32, opt_delta [P, M, C+1] f32, word_k / bit_k [P, M, C]
+    int32 -> final beam scores [P, B] f32 (NEG = empty slot)."""
+    if opt_delta.device.type == "cpu":
+        return beam_scan_plain(base, opt_delta, word_k, bit_k, beam_width, n_words)
+    p, m, c1 = opt_delta.shape
+    c = c1 - 1
+    if opt_delta.device.type != "cuda":
+        raise ValueError(f"unsupported device {opt_delta.device}")
+    for name, t, dt, shape in (
+        ("base", base, torch.float32, (p,)),
+        ("opt_delta", opt_delta, torch.float32, (p, m, c1)),
+        ("word_k", word_k, torch.int32, (p, m, c)),
+        ("bit_k", bit_k, torch.int32, (p, m, c)),
+    ):
+        if t.device != opt_delta.device or t.dtype != dt or tuple(t.shape) != shape:
+            raise ValueError(
+                f"{name}: expected {dt} {shape} on {opt_delta.device}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if beam_width < 1 or n_words < 1:
+        raise ValueError("beam_width and n_words must be positive")
+    if smem_bytes(c, beam_width, n_words) > _build.SMEM_LIMIT:
+        raise ValueError("beam shape needs more shared memory than a block has")
+    out = torch.empty((p, beam_width), dtype=torch.float32, device=opt_delta.device)
+    with torch.cuda.device(opt_delta.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _launcher()(
+            base.data_ptr(), opt_delta.data_ptr(), word_k.data_ptr(),
+            bit_k.data_ptr(), out.data_ptr(), p, m, c, beam_width, n_words, stream,
+        )
+    _build.check(err, "beam_scan_launch")
+    beam_scan_batch.launches += 1
+    return out
+
+
+beam_scan_batch.launches = 0

@@ -1,0 +1,87 @@
+"""The port's prepare_options and plain beam against monorfs_tpu's
+association.beam_scan and beam_pallas.beam_scan_batch(interpret=True):
+exactly equal, float32, on random gated instances."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from monorfs_tpu.slam import association as jassoc
+from monorfs_tpu.slam import beam_pallas
+
+from monorfs_tpu_torch.slam import association, beam_kernel
+
+
+def _instances(seed, p, n, m):
+    rng = np.random.default_rng(seed)
+    ll = rng.normal(0, 3, (p, n, m)).astype(np.float32)
+    ll = np.where(rng.random((p, n, m)) < 0.7, np.float32(jassoc.NEG), ll)
+    log_miss = rng.normal(-1, 0.5, (p, n)).astype(np.float32)
+    n_mask = rng.random((p, n)) < 0.8
+    m_mask = rng.random((p, m)) < 0.8
+    return ll, log_miss, n_mask, m_mask, np.float32(-2.5)
+
+
+def _jax_prepare(ll, log_miss, n_mask, m_mask, log_clutter, c):
+    prep = jax.vmap(
+        lambda l, lm, nm, mm: jassoc.prepare_options(l, lm, log_clutter, nm, mm, c)
+    )
+    return prep(jnp.asarray(ll), jnp.asarray(log_miss), jnp.asarray(n_mask), jnp.asarray(m_mask))
+
+
+@pytest.mark.parametrize("seed,p,n,m,c,b", [(3, 9, 48, 17, 6, 32), (5, 4, 40, 24, 6, 32)])
+def test_prepare_options_and_beam_exact(seed, p, n, m, c, b):
+    ll, log_miss, n_mask, m_mask, log_clutter = _instances(seed, p, n, m)
+    jbase, jod, jwk, jbk, _ = _jax_prepare(ll, log_miss, n_mask, m_mask, log_clutter, c)
+    n_words = (n + 31) // 32
+    base, od, wk, bk, tw = association.prepare_options(
+        torch.from_numpy(ll), torch.from_numpy(log_miss), log_clutter,
+        torch.from_numpy(n_mask), torch.from_numpy(m_mask), c,
+    )
+    assert tw == n_words
+    # base is a float32 sum over landmarks: the summation order differs
+    np.testing.assert_allclose(base.numpy(), np.asarray(jbase), rtol=1e-6)
+    np.testing.assert_array_equal(od.numpy(), np.asarray(jod))
+    np.testing.assert_array_equal(wk.numpy(), np.asarray(jwk))
+    np.testing.assert_array_equal(bk.numpy(), np.asarray(jbk).view(np.int32))
+
+    ref_scan = jax.vmap(
+        lambda b_, o, w, k: jassoc.beam_scan(b_, o, w, k, b, n_words)
+    )(jbase, jod, jwk, jbk)
+    ref_pallas = beam_pallas.beam_scan_batch(jbase, jod, jwk, jbk, b, n_words, interpret=True)
+    # the same option tensors into both beams: bit-identical scores
+    out = beam_kernel.beam_scan_batch(
+        torch.from_numpy(np.array(jbase)), od, wk, bk, b, n_words
+    )
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref_scan))
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref_pallas))
+
+
+def test_bit31_words():
+    """Landmark 31 of a word sets the sign bit of the int32 word, and the
+    membership test still sees it (uint32 in JAX)."""
+    bits = association.bit_of(torch.tensor([0, 31, 32, 63]))
+    assert bits.dtype == torch.int32
+    assert bits.tolist() == [1, -(2**31), 1, -(2**31)]
+    assert ((bits & bits[1]) != 0).tolist() == [False, True, False, True]
+    assert np.array_equal(bits.numpy().view(np.uint32), np.array([1, 2**31, 1, 2**31], np.uint32))
+
+
+def test_set_log_likelihood_matches_jax():
+    """The beam set likelihood of each particle, float32. The beam scores are
+    identical; the two logsumexp implementations round differently, by a few
+    float32 ulps of the score magnitude (~30): atol 1e-5."""
+    ll, log_miss, n_mask, m_mask, log_clutter = _instances(11, 3, 20, 6)
+    out = association.set_log_likelihood(
+        torch.from_numpy(ll), torch.from_numpy(log_miss), log_clutter,
+        torch.from_numpy(n_mask), torch.from_numpy(m_mask), 64, max_candidates=8,
+    )
+    for i in range(3):
+        ref = jassoc.set_log_likelihood(
+            jnp.asarray(ll[i]), jnp.asarray(log_miss[i]), jnp.asarray(log_clutter),
+            jnp.asarray(n_mask[i]), jnp.asarray(m_mask[i]), 64, max_candidates=8,
+        )
+        np.testing.assert_allclose(out[i].item(), float(ref), rtol=0, atol=1e-5)

@@ -1,0 +1,50 @@
+"""The port stands alone: monorfs_tpu_torch/ and chip_smoke.py import
+neither jax nor monorfs_tpu (AST scan), and chip_smoke.py fails with no
+result without a GPU or without the rest of the repository."""
+
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+FILES = sorted((ROOT / "monorfs_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "monorfs_tpu")
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def _smoke(cwd):
+    # hide every GPU, so the test means the same on a host that has one
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, capture_output=True,
+                          text=True, timeout=300, env=env)
+
+
+def test_chip_smoke_fails_without_gpu():
+    r = _smoke(ROOT)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path)
+    r = _smoke(tmp_path)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
