@@ -43,15 +43,20 @@ def _sources():
     return sorted(CSRC.glob("*.cu"))
 
 
+def _tag():
+    """Hash of the flags and every source and header: names the build."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return digest.hexdigest()[:16]
+
+
 def build_library():
     """Compile every csrc/*.cu (in parallel) and link one shared library.
     Returns its path; reuses an existing build of the same sources."""
     sources = _sources()
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources + sorted(CSRC.glob("*.cuh")):
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
-    tag = digest.hexdigest()[:16]
+    tag = _tag()
     lib = BUILD_DIR / f"libmonorfs_kernels_{tag}.so"
     if lib.exists():
         return lib
@@ -83,8 +88,9 @@ def build_library():
 
 
 def build_log():
-    """ptxas register / shared-memory report of the current build."""
-    return "\n".join(p.read_text() for p in sorted(BUILD_DIR.glob("*.log")))
+    """ptxas register / shared-memory report of the current build (only the
+    logs of the current sources' tag)."""
+    return "\n".join(p.read_text() for p in sorted(BUILD_DIR.glob(f"*_{_tag()}.log")))
 
 
 @functools.cache

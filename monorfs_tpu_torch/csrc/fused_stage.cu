@@ -18,23 +18,48 @@
 //             merge_rounds synchronous leader rounds, moments pooled about
 //             the leader's mean.
 //
-// Bound on the H100: bytes. The work is ~0.2 GFLOP of fp32 for 200
-// particles (a few us at 67 TFLOP/s) and the state moved is ~3.3 MB (~1 us
-// at 3.35 TB/s); every intermediate lives in shared memory.
+// Bound on the H100: on paper, operations (~67 M fp32 operations this data
+// needs at the bench warm state, ~1 us at 67 TFLOP/s; ~3.3 MB moved, ~1 us
+// at 3.35 TB/s). In practice, latency: 200 blocks, one per particle, each a
+// chain of phases separated by barriers, so a phase costs its longest
+// serial chain.
 //
 // Design: one block of 256 threads per particle. The predicted mixture, the
 // per-component EKF channels, the [M, KP] pair log-weights and the K x K
 // `lower` merge relation (as bitmask words) stay in shared memory. Gathers
-// are indices, not one-hot products. Per-measurement sums are warp
-// reductions; the bisection's counts are block reductions; the miss
-// compaction is a ballot prefix scan; a pair's place in its row is its
-// exact rank. Every elementwise formula follows the plain version's
-// operation order, and the build uses -fmad=false, so the two differ only
-// where a reduction sums in another order.
+// are indices, not one-hot products. Every phase uses the whole block, and
+// no thread runs a serial loop over K or KP:
+//   births, pairs   warp per measurement row, lanes over components, warp sums;
+//   EKF             thread per live component (one pass: its cost is one
+//                   component's dependent chain, which more threads would
+//                   not shorten); pairs compute a likelihood only in gate;
+//   cut             each thread keeps its entries (~15) in registers; a
+//                   bisection count is a register pass, a warp reduction and
+//                   one barrier (partials double-buffered);
+//   compaction      misses by a block-wide ballot prefix scan, row offsets by
+//                   a warp scan; each row's survivors gathered by one warp
+//                   (ballot prefix) and ranked against each other, so a row
+//                   costs its survivors squared over 32 lanes, not KP each;
+//   merge relation  live components ranked (weight desc, index asc); one
+//                   warp per member, its lanes over the heavier ranks only,
+//                   so half of the K x K tests are never made; a hit sets
+//                   its bit with atomicOr;
+//   pooling         each leader walks its member bits (set by atomicOr,
+//                   which is order-free), members in index order.
+// Cycles per block at the bench warm state (median over blocks, measured):
+// births ~11 k, EKF ~5 k, pairs ~8.7 k, cut ~2.2 k (~15 k when the cap
+// binds), compaction ~8.5 k, merge relation ~20 k (ranking ~5 k, tests
+// ~14 k: issue-bound where two blocks share an SM), leader rounds ~4 k,
+// pooling ~7.8 k; ~68 k in all. Every elementwise formula
+// follows the plain version's operation order, and the build uses
+// -fmad=false, so the two differ only where a reduction sums in another
+// order.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "kernel_util.cuh"
 
 namespace {
 
@@ -46,6 +71,7 @@ constexpr int THREADS = 256;
 constexpr int NWARPS = THREADS / 32;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int NPRM = 28;
+constexpr int CUT_REGS = 16;  // cut entries a thread keeps in registers
 
 struct Cam {
   float f, f2, left, right, top, bottom, rmin, rmax;
@@ -95,19 +121,18 @@ __device__ __forceinline__ float jmin(float a, float b) { return (a < b || a != 
 __device__ __forceinline__ float jmax(float a, float b) { return (a > b || a != a) ? a : b; }
 __device__ __forceinline__ float sgn(float x) { return x > 0.f ? 1.f : (x < 0.f ? -1.f : x); }
 
+// Phase clock probe: with clk set, thread 0 of each block writes clock64()
+// at entry and after the barrier that ends each of the NPHASE phases.
+constexpr int NPHASE = 9;
+__device__ __forceinline__ void probe(long long* clk, int i) {
+  if (clk == nullptr) return;
+  __syncthreads();
+  if (threadIdx.x == 0) clk[(size_t)blockIdx.x * (NPHASE + 1) + i] = clock64();
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
   return v;
-}
-
-__device__ __forceinline__ int block_sum(int v, int* scratch) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int r = 0;
-  for (int i = 0; i < NWARPS; ++i) r += scratch[i];
-  return r;
 }
 
 __device__ __forceinline__ float block_max(float v, float* scratch) {
@@ -180,8 +205,9 @@ fused_stage_kernel(const float* __restrict__ prm_g, const float* __restrict__ po
                    const float* __restrict__ maps, const float* __restrict__ zg,
                    const int* __restrict__ zmask, float* __restrict__ pred,
                    float* __restrict__ cor, int P, int K0, int M, int gate_top,
-                   int merge_rounds, Cam cam) {
+                   int merge_rounds, Cam cam, long long* clk) {
   extern __shared__ float sm[];
+  probe(clk, 0);
   const Layout L(K0, M);
   const int KP = L.KP, K = L.K, NWK = L.NWK;
   const int p = blockIdx.x, t = threadIdx.x, lane = t & 31, warp = t >> 5;
@@ -291,15 +317,21 @@ fused_stage_kernel(const float* __restrict__ prm_g, const float* __restrict__ po
     }
   }
   __syncthreads();
+  probe(clk, 1);
   for (int i = t; i < 10 * KP; i += THREADS) {
     const int c = i / KP, k = i - c * KP;
     pred[((size_t)c * P + p) * KP + k] = pm[i];
   }
+  probe(clk, 2);
 
   // ---- EKF precompute per predicted component ---------------------------------
   for (int k = t; k < KP; k += THREADS) {
     const float lw = pm[9 * KP + k];
     const bool alive = lw > ALIVE_THRESHOLD;
+    if (!alive) {  // a dead component is never gated: only its miss is read
+      cmiss[k] = DEAD;
+      continue;
+    }
     float c6[6], cv[3][3];
     for (int i = 0; i < 6; ++i) c6[i] = pm[(3 + i) * KP + k];
     sym_to_mat(c6, cv);
@@ -356,6 +388,7 @@ fused_stage_kernel(const float* __restrict__ prm_g, const float* __restrict__ po
     cmiss[k] = miss >= lminw ? miss : DEAD;
   }
   __syncthreads();
+  probe(clk, 3);
 
   // ---- gated pair log-weights, normalised per measurement ----------------------
   {
@@ -365,19 +398,21 @@ fused_stage_kernel(const float* __restrict__ prm_g, const float* __restrict__ po
       float acc = 0.f;
       for (int k = lane; k < KP; k += 32) {
         const float lw = pm[9 * KP + k];
-        float d[3], in[3], a[3][3];
-        for (int i = 0; i < 3; ++i) {
-          d[i] = bp[i * M + j] - pm[i * KP + k];
-          in[i] = zs[i * M + j] - h[i * KP + k];
-        }
+        float d[3];
+        for (int i = 0; i < 3; ++i) d[i] = bp[i * M + j] - pm[i * KP + k];
         const bool gate = dot3(d[0], d[0], d[1], d[1], d[2], d[2]) <= r2 &&
                           lw > ALIVE_THRESHOLD && zlive;
-        for (int i = 0; i < 9; ++i) a[i / 3][i % 3] = sinv[i * KP + k];
-        float q = slogm[k] - 0.5f * quadform(in, a);
-        if (!isfinite(q)) q = DEAD;
-        const float ln = gate ? logpd[k] + lw + q : DEAD;
+        float ln = DEAD;
+        if (gate) {  // the likelihood only where it is read
+          float in[3], a[3][3];
+          for (int i = 0; i < 3; ++i) in[i] = zs[i * M + j] - h[i * KP + k];
+          for (int i = 0; i < 9; ++i) a[i / 3][i % 3] = sinv[i * KP + k];
+          float q = slogm[k] - 0.5f * quadform(in, a);
+          if (!isfinite(q)) q = DEAD;
+          ln = logpd[k] + lw + q;
+          acc += expf(ln);
+        }
         cpair[j * KP + k] = ln;
-        if (gate) acc += expf(ln);
       }
       // out-of-gate entries hold DEAD and stay below lminw after the shift
       const float lden = logf(prm[P_CLUTTER] + warp_sum(acc));
@@ -388,63 +423,90 @@ fused_stage_kernel(const float* __restrict__ prm_g, const float* __restrict__ po
     }
   }
   __syncthreads();
+  probe(clk, 4);
 
   // ---- MaxQuantity cut: bisect for tau ------------------------------------------
+  // Each thread's entries (misses, then pairs, strided by THREADS) sit in
+  // registers, the first CUT_REGS of them; a count is a register pass, a
+  // warp reduction and one barrier (per-warp partials double-buffered).
   const int npair = M * KP;
+  const int nall = KP + npair;
+  auto entry = [&](int i) {
+    return i < KP ? cmiss[i] : (i < nall ? cpair[i - KP] : -INFINITY);
+  };
   float tau;
   {
-    float mx = -INFINITY;
-    for (int k = t; k < KP; k += THREADS) mx = fmaxf(mx, cmiss[k]);
-    for (int i = t; i < npair; i += THREADS) mx = fmaxf(mx, cpair[i]);
     const float lo = (0.f + lminw) - 1.0f;
+    float mine[CUT_REGS];
+    float mx = -INFINITY;
+#pragma unroll
+    for (int r = 0; r < CUT_REGS; ++r) {
+      mine[r] = entry(t + r * THREADS);
+      mx = fmaxf(mx, mine[r]);
+    }
+    for (int i = t + CUT_REGS * THREADS; i < nall; i += THREADS) mx = fmaxf(mx, entry(i));
     const float hi = jmax(block_max(mx, fscratch), lo + 1e-3f);
-    auto count_above = [&](float th) {
+    int* part = iscratch;  // [2][NWARPS]
+    auto count_above = [&](float th, int buf) {
       int c = 0;
-      for (int k = t; k < KP; k += THREADS) c += cmiss[k] > th;
-      for (int i = t; i < npair; i += THREADS) c += cpair[i] > th;
-      return block_sum(c, iscratch);
+#pragma unroll
+      for (int r = 0; r < CUT_REGS; ++r) c += mine[r] > th;
+      for (int i = t + CUT_REGS * THREADS; i < nall; i += THREADS) c += entry(i) > th;
+      c = __reduce_add_sync(FULL, c);
+      if (lane == 0) part[buf * NWARPS + warp] = c;
+      __syncthreads();
+      int total = 0;
+      for (int w = 0; w < NWARPS; ++w) total += part[buf * NWARPS + w];
+      return total;
     };
     tau = lo;
-    if (count_above(lo) > K) {  // the cap binds (uniform across the block)
+    if (count_above(lo, 0) > K) {  // the cap binds (uniform across the block)
       float lo_b = lo, hi_b = hi;
       for (int it = 0; it < 30; ++it) {
         const float mid = 0.5f * (lo_b + hi_b);
-        const bool over = count_above(mid) > K;
+        const bool over = count_above(mid, (it + 1) & 1) > K;
         lo_b = over ? mid : lo_b;
         hi_b = over ? hi_b : mid;
       }
       tau = hi_b;
     }
   }
+  probe(clk, 5);
 
   // ---- compaction ----------------------------------------------------------------
+  // isl[slot] holds the pair (j * KP + k) a slot takes, -1 for a miss or none
   for (int i = t; i < K; i += THREADS) {
     for (int c = 0; c < 3; ++c) om[c * K + i] = 0.f;
     for (int c = 0; c < 6; ++c) oc[c * K + i] = 0.f;
     olw[i] = DEAD;
     fill[i] = 0;
+    isl[i] = -1;
   }
   __syncthreads();
-  if (warp == 0) {  // misses: ballot prefix scan in component order
-    int running = 0;
-    for (int base = 0; base < KP; base += 32) {
-      const int k = base + lane;
-      const bool keep = k < KP && cmiss[k] > tau;
-      const uint32_t bal = __ballot_sync(FULL, keep);
-      const int slot = running + __popc(bal & ((1u << lane) - 1u));
-      if (keep && slot < K) {
-        for (int c = 0; c < 9; ++c) {
-          const float v = pm[c * KP + k];
-          (c < 3 ? om[c * K + slot] : oc[(c - 3) * K + slot]) = isfinite(v) ? v : 0.f;
-        }
-        olw[slot] = cmiss[k];
-        fill[slot] = 1;
-      }
-      running += __popc(bal);
+  int n_miss = 0;  // misses: block-wide ballot prefix scan in component order
+  for (int base = 0; base < KP; base += THREADS) {
+    const int k = base + t;
+    const bool keep = k < KP && cmiss[k] > tau;
+    const uint32_t bal = __ballot_sync(FULL, keep);
+    if (lane == 0) iscratch[16 + warp] = __popc(bal);
+    __syncthreads();
+    int slot = n_miss + __popc(bal & ((1u << lane) - 1u));
+    for (int w = 0; w < NWARPS; ++w) {
+      const int c = iscratch[16 + w];
+      slot += w < warp ? c : 0;
+      n_miss += c;
     }
-    if (lane == 0) iscratch[16] = running;
+    if (keep && slot < K) {
+      for (int c = 0; c < 9; ++c) {
+        const float v = pm[c * KP + k];
+        (c < 3 ? om[c * K + slot] : oc[(c - 3) * K + slot]) = isfinite(v) ? v : 0.f;
+      }
+      olw[slot] = cmiss[k];
+      fill[slot] = 1;
+    }
+    __syncthreads();
   }
-  for (int j = warp; j < M; j += NWARPS) {
+  for (int j = warp; j < M; j += NWARPS) {  // survivors per measurement row
     int cnt = 0;
     for (int base = 0; base < KP; base += 32) {
       const int k = base + lane;
@@ -453,25 +515,85 @@ fused_stage_kernel(const float* __restrict__ prm_g, const float* __restrict__ po
     if (lane == 0) rowcnt[j] = cnt < gate_top ? cnt : gate_top;
   }
   __syncthreads();
-  if (t == 0) {
-    int off = 0;
-    for (int j = 0; j < M; ++j) {
-      rowoff[j] = off;
-      off += rowcnt[j];
+  if (warp == 0) {  // row offsets: exclusive warp scan, 32 rows a pass
+    int carry = 0;
+    for (int base = 0; base < M; base += 32) {
+      const int j = base + lane;
+      const int v = j < M ? rowcnt[j] : 0;
+      int incl = v;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int u = __shfl_up_sync(FULL, incl, o);
+        incl += lane >= o ? u : 0;
+      }
+      if (j < M) rowoff[j] = carry + incl - v;
+      carry += __shfl_sync(FULL, incl, 31);
     }
   }
   __syncthreads();
-  const int n_miss = iscratch[16];
-  for (int idx = t; idx < npair; idx += THREADS) {
-    const float v = cpair[idx];
-    if (!(v > tau)) continue;
-    const int j = idx / KP, k = idx - j * KP;
-    const float* row = cpair + j * KP;
-    int r = 0;
-    for (int u = 0; u < KP; ++u) r += (row[u] > v) || (row[u] == v && u < k);
-    if (r >= rowcnt[j]) continue;
-    const int slot = n_miss + rowoff[j] + r;
-    if (slot >= K) continue;
+  // each row's survivors in (weight desc, index asc) order: one warp per
+  // row gathers them (ballot prefix) into a per-warp list in the inv, w and
+  // lead regions (free until the merge), and each ranks itself against the
+  // list; a row with more survivors than the list holds ranks each against
+  // the whole row
+  {
+    const int room = 11 * K / (2 * NWARPS);
+    const int cap = room < 32 ? room : 32;
+    float* sv = inv + warp * 2 * cap;
+    int* sk = reinterpret_cast<int*>(sv + cap);
+    for (int j = warp; j < M; j += NWARPS) {
+      const int take = rowcnt[j];
+      if (take == 0) continue;
+      const float* row = cpair + j * KP;
+      const int first = n_miss + rowoff[j];
+      auto place = [&](float v, int k, int r) {
+        const int slot = first + r;
+        if (r < take && slot < K) {
+          isl[slot] = j * KP + k;
+          olw[slot] = v;
+          fill[slot] = 1;
+        }
+      };
+      int n = 0;
+      for (int base = 0; base < KP; base += 32) {
+        const int k = base + lane;
+        const float v = k < KP ? row[k] : -INFINITY;
+        const bool keep = v > tau;
+        const uint32_t bal = __ballot_sync(FULL, keep);
+        const int pos = n + __popc(bal & ((1u << lane) - 1u));
+        if (keep && pos < cap) {
+          sv[pos] = v;
+          sk[pos] = k;
+        }
+        n += __popc(bal);
+      }
+      __syncwarp();
+      if (n <= cap) {
+        if (lane < n) {
+          const float v = sv[lane];
+          int r = 0;
+          for (int u = 0; u < n; ++u) {
+            const float x = sv[u];
+            r += (x > v) || (x == v && u < lane);
+          }
+          place(v, sk[lane], r);
+        }
+      } else {
+        for (int k = lane; k < KP; k += 32) {
+          const float v = row[k];
+          if (!(v > tau)) continue;
+          int r = 0;
+          for (int u = 0; u < KP; ++u) r += (row[u] > v) || (row[u] == v && u < k);
+          place(v, k, r);
+        }
+      }
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+  for (int slot = t; slot < K; slot += THREADS) {  // the pair survivors' moments
+    const int f = isl[slot];
+    if (f < 0) continue;
+    const int j = f / KP, k = f - j * KP;
     const float in0 = zs[j] - h[k], in1 = zs[M + j] - h[KP + k], in2 = zs[2 * M + j] - h[2 * KP + k];
     for (int i = 0; i < 3; ++i) {
       const float mu = pm[i * KP + k] + dot3(gain[(3 * i) * KP + k], in0, gain[(3 * i + 1) * KP + k],
@@ -479,10 +601,9 @@ fused_stage_kernel(const float* __restrict__ prm_g, const float* __restrict__ po
       om[i * K + slot] = isfinite(mu) ? mu : 0.f;
     }
     for (int c = 0; c < 6; ++c) oc[c * K + slot] = covu[c * KP + k];
-    olw[slot] = v;
-    fill[slot] = 1;
   }
   __syncthreads();
+  probe(clk, 6);
 
   // ---- greedy weight-ordered merge ----------------------------------------------
   for (int i = t; i < K; i += THREADS) {
@@ -494,28 +615,54 @@ fused_stage_kernel(const float* __restrict__ prm_g, const float* __restrict__ po
     wt[i] = fill[i] ? expf(olw[i]) : 0.f;
     isl[i] = fill[i];
   }
+  for (int i = t; i < K * NWK; i += THREADS) bits[i] = 0u;
   __syncthreads();
-  const float thr2 = prm[P_MERGE] * prm[P_MERGE];
-  for (int k = t; k < K; k += THREADS) {
-    const bool live_k = fill[k] != 0;
-    const float wk = wt[k];
-    for (int wi = 0; wi < NWK; ++wi) {
-      uint32_t word = 0u;
-      for (int b = 0; b < 32; ++b) {
-        const int i = wi * 32 + b;
-        if (i >= K) break;
-        if (!live_k || !fill[i]) continue;
-        const float wi_ = wt[i];
-        if (!(wi_ > wk || (wi_ == wk && i < k))) continue;
-        float d[3], a[3][3];
-        for (int c = 0; c < 3; ++c) d[c] = om[c * K + k] - om[c * K + i];
-        for (int c = 0; c < 9; ++c) a[c / 3][c % 3] = inv[c * K + i];
-        if (quadform(d, a) < thr2) word |= 1u << b;
+  // live components in (weight desc, index asc) order: lead[rank] = index
+  int n_live = 0;
+  for (int base = 0; base < K; base += THREADS) {
+    const int i = base + t;
+    const bool live = i < K && fill[i];
+    if (live) {
+      const float w = wt[i];
+      int r = 0;
+#pragma unroll 8
+      for (int u = 0; u < K; ++u) {  // branch-free, so the loads pipeline
+        const float wu = wt[u];
+        r += (fill[u] != 0) & ((wu > w) | ((wu == w) & (u < i)));
       }
-      bits[k * NWK + wi] = word;
+      lead[r] = i;
+    }
+    n_live += __syncthreads_count(live);
+  }
+  // rank-ordered copies of the means and metrics (in the EKF region, free
+  // after the compaction), so lanes over consecutive ranks read distinct banks
+  float* rmean = h;           // [3][K]
+  float* rinv = h + 3 * K;    // [9][K]
+  for (int q = t; q < n_live; q += THREADS) {
+    const int i = lead[q];
+    for (int c = 0; c < 3; ++c) rmean[c * K + q] = om[c * K + i];
+    for (int c = 0; c < 9; ++c) rinv[c * K + q] = inv[c * K + i];
+  }
+  __syncthreads();
+  // lower(i, k) = i heavier than k, both live, within the merge distance of
+  // i's metric: one warp per member k, its lanes over the heavier ranks
+  // only; a hit sets its bit with atomicOr (order-free, so exact)
+  const float thr2 = prm[P_MERGE] * prm[P_MERGE];
+  for (int a = warp; a < n_live; a += NWARPS) {
+    const int k = lead[a];
+    const float mk[3] = {rmean[a], rmean[K + a], rmean[2 * K + a]};
+    for (int q = lane; q < a; q += 32) {
+      float d[3], m[3][3];
+      for (int c = 0; c < 3; ++c) d[c] = mk[c] - rmean[c * K + q];
+      for (int c = 0; c < 9; ++c) m[c / 3][c % 3] = rinv[c * K + q];
+      if (quadform(d, m) < thr2) {
+        const int i = lead[q];
+        atomicOr(&bits[k * NWK + (i >> 5)], 1u << (i & 31));
+      }
     }
   }
   __syncthreads();
+  probe(clk, 7);
   for (int round = 0; round <= merge_rounds; ++round) {
     for (int base = warp * 32; base < NWK * 32; base += THREADS) {
       const int k = base + lane;
@@ -549,24 +696,36 @@ fused_stage_kernel(const float* __restrict__ prm_g, const float* __restrict__ po
     lead[k] = best;
   }
   __syncthreads();
+  probe(clk, 8);
+  // member words: bit k of row i set when live k follows leader i (the
+  // relation's words are free again); OR is order-free, so this is exact
+  for (int i = t; i < K * NWK; i += THREADS) bits[i] = 0u;
+  __syncthreads();
+  for (int k = t; k < K; k += THREADS)
+    if (fill[k]) atomicOr(&bits[lead[k] * NWK + (k >> 5)], 1u << (k & 31));
+  __syncthreads();
   for (int i = t; i < K; i += THREADS) {  // moments pooled about the leader mean
     float acc[16];
     for (int c = 0; c < 16; ++c) acc[c] = 0.f;
     if (isl[i]) {
-      for (int k = 0; k < K; ++k) {
-        if (!fill[k] || lead[k] != i) continue;
-        const float w = wt[k];
-        float dv[3];
-        for (int a = 0; a < 3; ++a) dv[a] = om[a * K + k] - om[a * K + i];
-        acc[0] += w;
-        for (int a = 0; a < 3; ++a) acc[1 + a] += w * dv[a];
-        acc[4] += w * dv[0] * dv[0];
-        acc[5] += w * dv[0] * dv[1];
-        acc[6] += w * dv[0] * dv[2];
-        acc[7] += w * dv[1] * dv[1];
-        acc[8] += w * dv[1] * dv[2];
-        acc[9] += w * dv[2] * dv[2];
-        for (int c = 0; c < 6; ++c) acc[10 + c] += w * oc[c * K + k];
+      for (int wi = 0; wi < NWK; ++wi) {  // members in index order
+        uint32_t e = bits[i * NWK + wi];
+        while (e) {
+          const int k = wi * 32 + __ffs(e) - 1;
+          e &= e - 1u;
+          const float w = wt[k];
+          float dv[3];
+          for (int a = 0; a < 3; ++a) dv[a] = om[a * K + k] - om[a * K + i];
+          acc[0] += w;
+          for (int a = 0; a < 3; ++a) acc[1 + a] += w * dv[a];
+          acc[4] += w * dv[0] * dv[0];
+          acc[5] += w * dv[0] * dv[1];
+          acc[6] += w * dv[0] * dv[2];
+          acc[7] += w * dv[1] * dv[1];
+          acc[8] += w * dv[1] * dv[2];
+          acc[9] += w * dv[2] * dv[2];
+          for (int c = 0; c < 6; ++c) acc[10 + c] += w * oc[c * K + k];
+        }
       }
     }
     const bool out_alive = isl[i] && acc[0] > 0.f;
@@ -583,7 +742,10 @@ fused_stage_kernel(const float* __restrict__ prm_g, const float* __restrict__ po
     }
     out[9 * leaf] = out_alive ? logf(safe) : DEAD;
   }
+  probe(clk, 9);
 }
+
+std::atomic<size_t> smem_set[kMaxDevices];
 
 }  // namespace
 
@@ -592,19 +754,20 @@ extern "C" size_t fused_stage_smem_bytes(int K0, int M) {
 }
 
 // prm [28]; pose [P, 7]; maps [10, P, K0]; z [M, 3] f32; zmask [M] int32;
-// pred [10, P, K0+M] and cor [10, P, K0] f32 out.
+// pred [10, P, K0+M] and cor [10, P, K0] f32 out; clk [P, NPHASE+1] int64
+// phase clocks, or null (the main path).
 extern "C" int fused_stage_launch(const float* prm, const float* pose, const float* maps,
                                   const float* z, const int* zmask, float* pred, float* cor,
                                   int P, int K0, int M, int gate_top, int merge_rounds,
                                   float f, float f2, float left, float right, float top,
-                                  float bottom, float rmin, float rmax, void* stream) {
+                                  float bottom, float rmin, float rmax, long long* clk,
+                                  void* stream) {
   if (P == 0) return 0;
   const size_t smem = Layout(K0, M).total * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_stage_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = allow_smem((const void*)fused_stage_kernel, smem_set, smem);
   if (err != cudaSuccess) return (int)err;
   const Cam cam{f, f2, left, right, top, bottom, rmin, rmax};
   fused_stage_kernel<<<P, THREADS, smem, (cudaStream_t)stream>>>(
-      prm, pose, maps, z, zmask, pred, cor, P, K0, M, gate_top, merge_rounds, cam);
+      prm, pose, maps, z, zmask, pred, cor, P, K0, M, gate_top, merge_rounds, cam, clk);
   return (int)cudaGetLastError();
 }

@@ -7,9 +7,10 @@ Runs one warm-up chunk, then `--frames` frames under torch.profiler (CPU and
 CUDA activity) and prints one JSON object: host wall time per frame, device
 time per frame (kernels, copies and fills) and the device's idle share, the
 stage ranges (vehicle, phd.*) with the host time spent in them and the
-device time of the work they launched, per frame, the device events with
-the most time, and device events per frame. --trace also writes a
-Chrome trace.
+device time of the work they launched, per frame, the port's hand-written
+kernels' device time and launches per frame, the device events with the
+most time, and device events per frame. --trace also writes a Chrome
+trace.
 
 --sync-check instead runs the frames under
 torch.cuda.set_sync_debug_mode("warn") and prints every call that made the
@@ -32,6 +33,7 @@ from .bench_core import CHUNK, draw_chunk, run_frames, setup
 
 STAGES = ("vehicle", "phd.predict", "phd.fused_stage", "phd.weight_inputs",
           "phd.beam_scan", "phd.normalise_resample")
+KERNELS = {"beam_scan": "beam_scan", "fused_stage": "fused_stage_kernel"}  # name: substring
 PACKAGE = pathlib.Path(__file__).resolve().parent
 
 
@@ -117,6 +119,11 @@ def main(argv=None):
         us, calls = by_name.get(key, (0.0, 0))
         by_name[key] = (us + e.time_range.elapsed_us(), calls + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    kernels = {}
+    for name, part in KERNELS.items():
+        mine = [e for e in on_device if part in e.name]
+        kernels[name] = {"device_ms_per_frame": sum(e.time_range.elapsed_us() for e in mine) / 1e3 / n,
+                         "launches_per_frame": len(mine) / n}
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "frames": n,
@@ -125,6 +132,7 @@ def main(argv=None):
         "device_idle_share": 1.0 - device_us / 1e6 / wall,
         "device_events_per_frame": len(on_device) / n,
         "stages": stages,
+        "kernels": kernels,
         "top_kernels": [
             {"name": k, "device_ms_per_frame": us / 1e3 / n, "calls_per_frame": c / n}
             for k, (us, c) in top

@@ -30,6 +30,8 @@ from ..gm import smallmat
 from ..gm.mixture import ALIVE_THRESHOLD, DEAD, SGM, topk_stable
 
 BISECT = 30
+PHASES = ("births", "predicted write", "EKF", "pairs", "cut", "compaction",
+          "merge relation", "leader rounds", "pooling and write")
 _PAIRS = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
 
 
@@ -251,14 +253,17 @@ def smem_bytes(k0, m):
 def _launcher():
     return _build.function(
         "fused_stage_launch",
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float] * 8 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float] * 8 + [ctypes.c_void_p] * 2,
     )
 
 
-def fused_stage(model, cfg, params, pose, maps: SGM, z, z_mask, packed=None):
+def fused_stage(model, cfg, params, pose, maps: SGM, z, z_mask, packed=None, phase_clock=None):
     """Births + correct + prune for all particles; see the module note.
     packed: pack_params(params) on the device, when the caller keeps it
-    across calls. Returns (predicted SGM [P, K0+M], corrected SGM [P, K0])."""
+    across calls. phase_clock: an int64 [P, len(PHASES) + 1] CUDA tensor that
+    receives each block's clock64() at entry and after each phase of PHASES
+    (a measurement; it adds a barrier per phase). Returns (predicted SGM
+    [P, K0+M], corrected SGM [P, K0])."""
     if pose.device.type == "cpu":
         return fused_stage_plain(model, cfg, params, pose, maps, z, z_mask)
     if pose.device.type != "cuda":
@@ -283,6 +288,13 @@ def fused_stage(model, cfg, params, pose, maps: SGM, z, z_mask, packed=None):
         raise ValueError("gate_top must be positive and merge_rounds non-negative")
     if smem_bytes(k0, m) > _build.SMEM_LIMIT:
         raise ValueError(f"K0={k0}, M={m} needs more shared memory than a block has")
+    clk = 0
+    if phase_clock is not None:
+        shape = (p, len(PHASES) + 1)
+        if (phase_clock.device != dev or phase_clock.dtype != torch.int64
+                or tuple(phase_clock.shape) != shape or not phase_clock.is_contiguous()):
+            raise ValueError(f"phase_clock: expected contiguous int64 {shape} on {dev}")
+        clk = phase_clock.data_ptr()
 
     kp = k0 + m
     pose_c = pose.contiguous()
@@ -303,7 +315,7 @@ def fused_stage(model, cfg, params, pose, maps: SGM, z, z_mask, packed=None):
             p, k0, m, cfg.gate_top, cfg.merge_rounds,
             cp.focal, cp.focal * cp.focal, cp.film_left, cp.film_right,
             cp.film_top, cp.film_bottom, cp.range_min, cp.range_max,
-            stream,
+            clk, stream,
         )
     _build.check(err, "fused_stage_launch")
     fused_stage.launches += 1

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 from monorfs_tpu.slam import association as jassoc
 from monorfs_tpu.slam import beam_pallas
 
+from monorfs_tpu_torch.kernel_cases import beam_ties
 from monorfs_tpu_torch.slam import association, beam_kernel
 
 
@@ -32,7 +33,9 @@ def _jax_prepare(ll, log_miss, n_mask, m_mask, log_clutter, c):
     return prep(jnp.asarray(ll), jnp.asarray(log_miss), jnp.asarray(n_mask), jnp.asarray(m_mask))
 
 
-@pytest.mark.parametrize("seed,p,n,m,c,b", [(3, 9, 48, 17, 6, 32), (5, 4, 40, 24, 6, 32)])
+@pytest.mark.parametrize(
+    "seed,p,n,m,c,b", [(3, 9, 48, 17, 6, 32), (5, 4, 40, 24, 6, 32), (7, 3, 96, 12, 8, 64)]
+)
 def test_prepare_options_and_beam_exact(seed, p, n, m, c, b):
     ll, log_miss, n_mask, m_mask, log_clutter = _instances(seed, p, n, m)
     jbase, jod, jwk, jbk, _ = _jax_prepare(ll, log_miss, n_mask, m_mask, log_clutter, c)
@@ -58,6 +61,23 @@ def test_prepare_options_and_beam_exact(seed, p, n, m, c, b):
     )
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref_scan))
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref_pallas))
+
+
+@pytest.mark.parametrize("seed,p,m,c,n_words,b", [(5, 6, 24, 6, 2, 32), (9, 3, 12, 8, 3, 64)])
+def test_beam_ties_exact(seed, p, m, c, n_words, b):
+    """Tie-heavy options (kernel_cases.beam_ties, the inputs chip_smoke.py
+    holds the CUDA kernel to): hundreds of exactly equal candidates a step,
+    most landmarks used, word indices out of range. The plain beam equals
+    JAX's scan and its Pallas kernel (interpret mode) bit for bit."""
+    base, od, wk, bk = beam_ties(seed, p, m, c, n_words)
+    out = beam_kernel.beam_scan_batch(*[torch.from_numpy(x) for x in (base, od, wk, bk)], b, n_words)
+    jargs = (jnp.asarray(base), jnp.asarray(od), jnp.asarray(wk), jnp.asarray(bk.view(np.uint32)))
+    ref_scan = jax.vmap(lambda b_, o, w, k: jassoc.beam_scan(b_, o, w, k, b, n_words))(*jargs)
+    ref_pallas = beam_pallas.beam_scan_batch(*jargs, b, n_words, interpret=True)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref_scan))
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref_pallas))
+    # the case is what it claims: whole runs of equal scores survive
+    assert (np.diff(out.numpy(), axis=1) == 0).sum() > p * b // 4
 
 
 def test_bit31_words():

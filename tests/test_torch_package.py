@@ -1,6 +1,7 @@
 """The port stands alone: monorfs_tpu_torch/ and chip_smoke.py import
 neither jax nor monorfs_tpu (AST scan), and chip_smoke.py fails with no
-result without a GPU or without the rest of the repository."""
+result without a GPU or without the rest of the repository. The kernel
+build reports only its own logs."""
 
 import ast
 import os
@@ -48,3 +49,14 @@ def test_chip_smoke_fails_alone(tmp_path):
     r = _smoke(tmp_path)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+def test_build_log_reads_only_the_current_build(tmp_path, monkeypatch):
+    """_build.build_log gives the ptxas logs of the current sources' tag,
+    not those of an older build left in the same directory."""
+    from monorfs_tpu_torch import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    (tmp_path / f"beam_scan_{_build._tag()}.log").write_text("current")
+    (tmp_path / "beam_scan_0123456789abcdef.log").write_text("stale")
+    assert _build.build_log() == "current"
