@@ -1,41 +1,59 @@
 #!/usr/bin/env python
 """Smoke run of the PyTorch/CUDA port (monorfs_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--parent DIR]
+    python3 chip_smoke.py [--parent DIR] [--phases kernels,bench,sync,cli]
 
 Phases, one line each; any failure exits non-zero:
   1. device, `nvidia-smi` name and power limit, kernel build (nvcc, sm_90a);
   2. beam kernel vs its plain version, bit-identical: at the bench shape, on
-     tie-heavy inputs, at B=64 C=8 n_words=3 and at the default PHDConfig's
-     B=200 C=8 n_words=4;
+     tie-heavy inputs, at B=64 C=8 n_words=3, at the default PHDConfig's
+     B=200 C=8 n_words=4, and at the command line's 48 steps of that shape;
   3. fused kernel vs its plain version on warm random states at the bench
      shape, a cap-binds state, a merge-ties state and a second shape:
      predicted rtol/atol 2e-5, corrected component sets to the tolerances
-     of tests/test_fused_pallas.py; then its per-phase clock split;
-  4. the main path: run_benchmark at the bench.py config (200 particles,
+     of tests/test_fused_pallas.py; its per-phase clock split; then, to the
+     same tolerances and each with its device time, Linear2D and Linear1D
+     states at the bench shape and the command line's capacity (K0=600, the
+     pair table in device memory): PRM3D M=48 with the cap loose and
+     binding, Linear2D M=33, Linear1D M=20;
+  4. the bench path: run_benchmark at the bench.py config (200 particles,
      K=128, 48 -> 24 measurement slots, beam 32 x 6, 300 frames), with both
-     kernels launched once per frame and ATE below 0.03.
-  5. no host synchronisation: 10 frames of the main path after warm-up under
-     torch.cuda.set_sync_debug_mode("warn"), none from the port's code.
+     kernels launched once per frame and ATE below 0.03;
+  5. no host synchronisation: 10 frames of the bench path after warm-up under
+     torch.cuda.set_sync_debug_mode("warn"), none from the port's code;
+  6. the command-line path at full width, through cli.main and then
+     postanalysis.main on each recording: the 3D, 2D and 1D asset worlds with
+     200 particles and the default PHDConfig (K=600, beam 200 x 8) over their
+     whole command files, mapping-only on the 3D world, float64 on the 2D
+     world (30 frames), and the 3D recording replayed through dead
+     reckoning. The fused kernel must launch once per float32 frame, the
+     beam kernel once per float32 SLAM frame (none in mapping-only, float64
+     and odometry), every ATE / OSPA must be finite and under its limit, and
+     the replayed trajectory must equal the recorded odometry integrated.
+Nothing of the earlier phases was cut: phase 4 still runs all 300 frames.
 
 A kernel's time is its device time: torch.profiler's CUDA kernel events
-selected by the kernel's name, summed over the launches. The wrapper's wall
+selected by the kernel's name, their mean over the launches. The wrapper's wall
 time per call is printed beside it. --parent DIR also loads the port from
-another checkout (DIR/monorfs_tpu_torch, built by its own _build) and times
+another checkout (DIR/monorfs_tpu_torch, built by its own _build), times
 its kernels on the same inputs, in turns with this checkout's
-(parent, this, this, parent).
+(parent, this, this, parent), and holds the fused kernel's PRM3D results
+to the parent's bit for bit. --phases runs a subset (kernels = 2 and 3).
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
 
 import argparse
+import contextlib
 import importlib
 import importlib.util
+import io
 import json
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -43,12 +61,14 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from monorfs_tpu_torch import _build
+from monorfs_tpu_torch import _build, cli, postanalysis
 from monorfs_tpu_torch.bench import BENCH_CONFIG, run as run_bench
 from monorfs_tpu_torch.config import Config
 from monorfs_tpu_torch.gm.mixture import DEAD, SGM
+from monorfs_tpu_torch.io import Recording
 from monorfs_tpu_torch.kernel_cases import beam_ties, fused_state
 from monorfs_tpu_torch.models import PRM3D
+from monorfs_tpu_torch.models import get as get_model
 from monorfs_tpu_torch.profile_step import host_syncs, in_package
 from monorfs_tpu_torch.slam import association, beam_kernel, fused_kernel
 from monorfs_tpu_torch.slam.phd import PHDConfig
@@ -56,6 +76,7 @@ from monorfs_tpu_torch.slam.phd import PHDConfig
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
 FP32_OPS_S = 67e12  # H100 SXM fp32 outside the tensor cores
 ATE_LIMIT = 0.03  # ~3x the JAX package's 0.0108 on this config
+BENCH_FRAMES = 300  # the whole of mov3d.in
 BEAM_KERNEL = "beam_scan"  # substring of every beam kernel's name
 FUSED_KERNEL = "fused_stage_kernel"
 
@@ -86,7 +107,7 @@ def cuda_ms(fn, reps):
 def kernel_ms(fn, reps, kernel):
     """Device milliseconds per launch of the kernel whose name holds
     `kernel`: torch.profiler's CUDA kernel events of reps calls of fn, their
-    durations summed over their count (as profile_step reads them)."""
+    mean duration (as profile_step reads them)."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -94,9 +115,10 @@ def kernel_ms(fn, reps, kernel):
             fn()
         torch.cuda.synchronize()
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA and kernel in e.name]
-    if len(events) != reps:
+    # the tracer now and then loses one event of a run; more than that is a fault
+    if not reps - 1 <= len(events) <= reps:
         raise AssertionError(f"{len(events)} {kernel} kernel events for {reps} calls")
-    return sum(e.time_range.elapsed_us() for e in events) / 1e3 / reps
+    return sum(e.time_range.elapsed_us() for e in events) / 1e3 / len(events)
 
 
 def wall_ms(fn, reps):
@@ -163,6 +185,19 @@ def beam_check(name, inputs, b, n_words):
                                                          C=inputs[1].shape[2] - 1, B=b, n_words=n_words))
 
 
+def beam_bound(inputs, b):
+    """(bound ms, bound by) of one beam launch on these inputs."""
+    base, od, wk, bk = inputs
+    p, m, c1 = od.shape
+    c = c1 - 1
+    nbytes = 4 * (base.numel() + od.numel() + wk.numel() + bk.numel() + p * b)
+    nc = b * c1
+    # per step, what a top-B selection needs: nc candidate sums, B*C used-set
+    # ANDs, and nc + B*log2(nc) compares to pick the best B in order
+    ops = p * m * (nc + b * c + nc + b * int(np.ceil(np.log2(nc))))
+    return bound(nbytes, ops)
+
+
 def beam_phase(dev, parent):
     p, n, m, c, b = 200, BENCH_CONFIG.estimate_cap, BENCH_CONFIG.beam_meas_cap, \
         BENCH_CONFIG.beam_candidates, BENCH_CONFIG.beam_width
@@ -189,19 +224,26 @@ def beam_phase(dev, parent):
         None if parent is None else (lambda: parent[0].beam_scan_batch(*wide, wide_b, wide_w)),
         10, BEAM_KERNEL)
     plain_ms = cuda_ms(lambda: beam_kernel.beam_scan_plain(*inputs, b, n_words), 5)
-    base, od, wk, bk = inputs
-    nbytes = 4 * (base.numel() + od.numel() + wk.numel() + bk.numel() + p * b)
-    nc = b * (c + 1)
-    # per step, what a top-B selection needs: nc candidate sums, B*C used-set
-    # ANDs, and nc + B*log2(nc) compares to pick the best B in order
-    ops = p * od.shape[1] * (nc + b * c + nc + b * int(np.ceil(np.log2(nc))))
-    bms, by = bound(nbytes, ops)
+    bms, by = beam_bound(inputs, b)
+    # the command line's shape: the default PHDConfig over all 48 measurement
+    # slots of the 3D world (no beam_meas_cap)
+    cli_in = beam_random(dev, 13, p, default.estimate_cap, 48, default.beam_candidates)[0]
+    beam_check("cli-B200-C8-W4-M48", cli_in, wide_b, wide_w)
+    cli_bms, cli_by = beam_bound(cli_in, wide_b)
+    cli_shape = dict(case="cli-B200-C8-W4-M48", shape=dict(P=p, M=48, C=default.beam_candidates,
+                                                            B=wide_b, n_words=wide_w),
+                     max_abs_err=0.0,
+                     ms=kernel_ms(lambda: beam_kernel.beam_scan_batch(*cli_in, wide_b, wide_w), 10, BEAM_KERNEL),
+                     plain_ms=cuda_ms(lambda: beam_kernel.beam_scan_plain(*cli_in, wide_b, wide_w), 2),
+                     bound_ms=cli_bms, bound_by=cli_by)
+    say("beam-shape", **cli_shape)
     say("beam", ms=ms, parent_ms=parent_ms, wrapper_ms=w_ms, plain_ms=plain_ms,
         shape=dict(P=p, M=m, C=c, B=b, n_words=n_words),
         default_shape_ms=wide_ms, default_shape_parent_ms=wide_parent_ms)
     row = dict(name="beam_scan", route="cuda", source="monorfs_tpu_torch/csrc/beam_scan.cu",
                replaces="monorfs_tpu/slam/beam_pallas.py:178", max_abs_err=0.0, ms=float(np.mean(ms)),
-               wrapper_ms=w_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None)
+               wrapper_ms=w_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
+               shapes=[cli_shape])
     if parent_ms is not None:
         row["parent_ms"] = float(np.mean(parent_ms))
     return row
@@ -209,9 +251,9 @@ def beam_phase(dev, parent):
 
 # ---- phase 3: fused --------------------------------------------------------------
 
-def warm_state(seed, p, k0, m, n_lm, dev, merge_ties=False):
+def warm_state(seed, p, k0, m, n_lm, dev, merge_ties=False, model="PRM3D"):
     """kernel_cases.fused_state as float32 tensors on the device."""
-    pose, leaves, z, z_mask = fused_state(seed, p, k0, m, n_lm, merge_ties)
+    pose, leaves, z, z_mask = fused_state(seed, p, k0, m, n_lm, merge_ties, model)
     maps = SGM(*[torch.tensor(x, dtype=torch.float32, device=dev) for x in leaves])
     return (torch.tensor(pose, dtype=torch.float32, device=dev), maps,
             torch.tensor(z, dtype=torch.float32, device=dev), torch.tensor(z_mask, device=dev))
@@ -277,9 +319,22 @@ def phase_split(args):
     return split
 
 
-def fused_phase(dev, parent):
+def fused_bound(p, k0, m, d, s_dim, maps, pred, z_mask, cor, params):
+    """(bound ms, bound by) of one fused launch: every input read once and
+    every output written once against this data's operation count."""
+    kp = k0 + m
+    nbytes = 4 * (10 * p * k0 + s_dim * p + d * m + m + 16 + d + d * d + 10 * p * kp + 10 * p * k0)
+    return bound(nbytes, fused_ops(maps, pred, z_mask, cor, params, m))
+
+
+def model_phd_params(name, dev):
     cfg = Config()
-    params = cfg.phd_params(torch.float32, dev)
+    cfg.set_model_defaults(name)
+    return cfg.phd_params(torch.float32, dev)
+
+
+def fused_phase(dev, parent):
+    params = model_phd_params("PRM3D", dev)
     p, k0 = 200, BENCH_CONFIG.max_components
     m = BENCH_CONFIG.meas_compact
     cap_cfg = PHDConfig(num_particles=p, max_components=16, max_measurements=m,
@@ -296,7 +351,14 @@ def fused_phase(dev, parent):
         pred_ref, cor_ref = fused_kernel.fused_stage_plain(PRM3D, pcfg, params, pose, maps, z, z_mask)
         torch.cuda.synchronize()
         err = max(err, compare_fused(pred, cor, pred_ref, cor_ref))
-        say("fused-check", case=name, ok=True, alive_out=int((cor.logw > DEAD / 2).sum().item()))
+        same = None
+        if parent is not None:  # the PRM3D instantiation against the parent's kernel, bit for bit
+            ppred, pcor = parent[1].fused_stage(PRM3D, pcfg, params, pose, maps, z, z_mask)
+            same = all(torch.equal(a, b) for a, b in zip(list(pred) + list(cor), list(ppred) + list(pcor)))
+            if not same:
+                raise AssertionError(f"fused kernel differs from the parent's on {name}")
+        say("fused-check", case=name, ok=True, alive_out=int((cor.logw > DEAD / 2).sum().item()),
+            equals_parent=same)
     pose, maps, z, z_mask = warm_state(0, p, k0, m, 40, dev)
     args = (PRM3D, BENCH_CONFIG, params, pose, maps, z, z_mask)
     split = phase_split(args)
@@ -311,23 +373,188 @@ def fused_phase(dev, parent):
     plain_ms = cuda_ms(lambda: fused_kernel.fused_stage_plain(*args), 3)
     pred, cor = run()
     kp = k0 + m
-    nbytes = 4 * (10 * p * k0 + 7 * p + 3 * m + m + 28 + 10 * p * kp + 10 * p * k0)
-    bms, by = bound(nbytes, fused_ops(maps, pred, z_mask, cor, params, m))
+    bms, by = fused_bound(p, k0, m, 3, 7, maps, pred, z_mask, cor, params)
     say("fused", ms=ms, parent_ms=parent_ms, wrapper_ms=w_ms, plain_ms=plain_ms, max_abs_err=err,
         smem_bytes=fused_kernel.smem_bytes(k0, m), shape=dict(P=p, K0=k0, M=m, KP=kp))
+
+    # the other families, and the command-line capacity (K0 = 600: the pair
+    # table in the device-memory workspace); each state vs the plain version,
+    # then device ms, plain ms and bound at that shape
+    cli = PHDConfig(num_particles=p)  # the command line's default: K=600, gate_top 16, 8 rounds
+    bind = PHDConfig(num_particles=32)
+    shapes = [
+        # name, model, config, P, M, seed, landmarks, timed
+        ("lin2d-K128-M24", "Linear2D", BENCH_CONFIG, p, m, 21, 20, True),
+        ("lin1d-K128-M24", "Linear1D", BENCH_CONFIG, p, m, 22, 10, True),
+        ("prm3d-K600-M48", "PRM3D", cli, p, 48, 23, 40, True),
+        ("prm3d-K600-M48-cap-binds", "PRM3D", bind, 32, 48, 24, 580, True),
+        ("lin2d-K600-M33", "Linear2D", cli, p, 33, 25, 25, True),
+        ("lin1d-K600-M20", "Linear1D", cli, p, 20, 26, 12, True),
+    ]
+    extra = []
+    for name, mname, pcfg, pp, mm, seed, n_lm, timed in shapes:
+        model, mparams = get_model(mname), model_phd_params(mname, dev)
+        kk = pcfg.max_components
+        pose, maps, z, z_mask = warm_state(seed, pp, kk, mm, n_lm, dev, model=mname)
+        sargs = (model, pcfg, mparams, pose, maps, z, z_mask)
+        pred, cor = fused_kernel.fused_stage(*sargs)
+        pred_ref, cor_ref = fused_kernel.fused_stage_plain(*sargs)
+        torch.cuda.synchronize()
+        e = compare_fused(pred, cor, pred_ref, cor_ref)
+        err = max(err, e)
+        n_in = int((maps.logw > DEAD / 2).sum(1).max().item())
+        row = dict(case=name, model=mname, shape=dict(P=pp, K0=kk, M=mm, KP=kk + mm), max_abs_err=e,
+                   alive_out=int((cor.logw > DEAD / 2).sum().item()), alive_in_max=n_in,
+                   pairs_in_device_memory=fused_kernel.pairs_global(kk, mm),
+                   smem_bytes=fused_kernel.smem_bytes(kk, mm, fused_kernel.pairs_global(kk, mm)))
+        if timed:
+            row["ms"] = kernel_ms(lambda: fused_kernel.fused_stage(*sargs), 10, FUSED_KERNEL)
+            row["plain_ms"] = cuda_ms(lambda: fused_kernel.fused_stage_plain(*sargs), 2)
+            row["bound_ms"], row["bound_by"] = fused_bound(
+                pp, kk, mm, model.meas_dim, model.pose.state_dim, maps, pred, z_mask, cor, mparams)
+        say("fused-shape", **row, cycles_median_max=phase_split(sargs))
+        extra.append(row)
     row = dict(name="fused_stage", route="cuda", source="monorfs_tpu_torch/csrc/fused_stage.cu",
                replaces="monorfs_tpu/slam/fused_pallas.py:621", max_abs_err=err, ms=float(np.mean(ms)),
-               wrapper_ms=w_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None)
+               wrapper_ms=w_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
+               shapes=extra)
     if parent_ms is not None:
         row["parent_ms"] = float(np.mean(parent_ms))
     return row
+
+
+def reset_launches():
+    beam_kernel.beam_scan_batch.launches = 0
+    fused_kernel.fused_stage.launches = 0
+
+
+def read_launches():
+    return {"beam_scan": beam_kernel.beam_scan_batch.launches,
+            "fused_stage": fused_kernel.fused_stage.launches}
+
+
+def bench_phase(dev, kernels):
+    """Phase 4: the bench path, both kernels once per frame, ATE under its limit."""
+    reset_launches()
+    result = run_bench(frames=BENCH_FRAMES, device=dev)
+    launches = read_launches()
+    frames_run = 2 * result["frames"]  # warm-up run + timed run
+    for name, n in launches.items():
+        if n != frames_run:
+            raise AssertionError(f"{name} launched {n} times over {frames_run} frames")
+    if not np.isfinite(result["ate_rmse_loc"]) or result["ate_rmse_loc"] >= ATE_LIMIT:
+        raise AssertionError(f"ATE {result['ate_rmse_loc']} not below {ATE_LIMIT}")
+    say("main-path", **result, launches=launches)
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+        k["launches_by_path"] = {"bench": launches[k["name"]]}
+
+
+# ---- phase 6: the command-line path ----------------------------------------------
+
+# Limits on what postanalysis prints for each run, and where they come from.
+# 3D trajectory: the bench limit above. Maps of the 3D world:
+# tests/test_simulation.py:81 of the JAX package (mapping OSPA below 0.25).
+# Linear worlds' trajectories: tests/test_simulation.py:97 (SLAM ATE below 0.6).
+# Linear worlds' maps: the JAX package's own command (`python -m monorfs_tpu.cli
+# -f assets/<world> -c assets/<commands> -a phd -p 30 --dtype float64`, on a
+# CPU, seed 0) gave ATE 0.141286 and OSPA 0.547023 on linear2d and ATE 0.241264
+# and OSPA 0.764199 on linear1d; the limits sit just above those. OSPA's cutoff
+# is 1, so a run without a map (odometry) reads exactly 1.
+CLI_RUNS = [
+    # name, arguments after -f/-c, frames, (fused, beam) launches per frame, ATE limit, OSPA limit
+    ("3d-slam", ["sim3d.world", "mov3d.in"], ["-a", "phd", "-p", "200"], 300, (1, 1), 0.03, 0.25),
+    ("2d-slam", ["linear2d.world", "mov2d.in"], ["-a", "phd", "-p", "200"], 270, (1, 1), 0.6, 0.6),
+    ("1d-slam", ["linear1d.world", "mov1d.in"], ["-a", "phd", "-p", "200"], 200, (1, 1), 0.6, 0.8),
+    ("3d-mapping", ["sim3d.world", "mov3d.in"], ["-a", "phd", "-y", "-p", "1"], 300, (1, 0), 1e-6, 0.25),
+    ("2d-float64", ["linear2d.world", "mov2d.in"],
+     ["-a", "phd", "-p", "200", "--dtype", "float64", "--frames", "30"], 30, (0, 0), 0.6, 1.0),
+]
+
+
+def printed_number(text, label):
+    for line in text.splitlines():
+        if line.startswith(label):
+            return float(line.split(":")[1])
+    raise AssertionError(f"postanalysis printed no '{label}' line:\n{text}")
+
+
+def run_cli(name, argv, frames, per_frame, ate_limit, ospa_limit, record):
+    """cli.main then postanalysis.main on its recording, as a user runs
+    them; returns the row printed for the run."""
+    reset_launches()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli.main(argv + ["-r", str(record)])
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    want = {"fused_stage": per_frame[0] * frames, "beam_scan": per_frame[1] * frames}
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches}, expected {want}")
+    with contextlib.redirect_stdout(out):
+        postanalysis.main(["-f", str(record)])
+    text = out.getvalue()
+    ate = printed_number(text, "ATE loc RMSE")
+    ospa = printed_number(text, "final OSPA")
+    rec = Recording.load(record)
+    if len(rec.trajectory) != frames or len(rec.estimate) != frames or len(rec.maps) != frames:
+        raise AssertionError(f"{name}: recording holds {len(rec.trajectory)} frames, not {frames}")
+    if not (np.isfinite(ate) and (ate_limit is None or ate <= ate_limit)
+            and np.isfinite(ospa) and ospa <= ospa_limit):
+        raise AssertionError(f"{name}: ATE {ate} (limit {ate_limit}), OSPA {ospa} (limit {ospa_limit})")
+    row = dict(run=name, frames=frames, seconds=seconds, ms_per_frame=seconds * 1e3 / frames,
+               ate=ate, ate_limit=ate_limit, ospa=ospa, ospa_limit=ospa_limit, launches=launches,
+               kernels_on_path=("none: dead reckoning runs no filter" if "odometry" in argv else
+                                "none: float64 takes the XLA-semantics functions and the plain beam"
+                                if per_frame == (0, 0) else
+                                "fused only: mapping-only weighs no particle" if per_frame == (1, 0)
+                                else "fused and beam"))
+    say("cli-run", **row)
+    return row, rec, launches
+
+
+def cli_phase(dev, kernels):
+    """Phase 6: the command line's own entry on every asset family, then
+    postanalysis on each recording; launch counts, error limits and the
+    odometry replay against the recorded odometry integrated."""
+    assets = pathlib.Path(__file__).resolve().parent / "assets"
+    total = {"beam_scan": 0, "fused_stage": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        for name, files, flags, frames, per_frame, ate_limit, ospa_limit in CLI_RUNS:
+            argv = ["-f", str(assets / files[0]), "-c", str(assets / files[1])] + flags
+            _, _, launches = run_cli(name, argv, frames, per_frame, ate_limit, ospa_limit,
+                                     tmp / f"{name}.zip")
+            for k, n in launches.items():
+                total[k] += n
+        # replay the 3D recording through dead reckoning: its trajectory is the
+        # recorded odometry integrated from the first pose
+        _, rec, _ = run_cli("3d-replay-odometry", ["-f", str(tmp / "3d-slam.zip"), "-i", "record",
+                                                   "-a", "odometry"], 300, (0, 0), None, 1.0,
+                            tmp / "3d-odometry.zip")
+        src = Recording.load(tmp / "3d-slam.zip")
+        pose = torch.as_tensor(src.world.pose, dtype=torch.float64)
+        worst = 0.0
+        for (_, odo), (_, est) in zip(src.odometry, rec.estimate[-1][1]):
+            pose = PRM3D.pose.add_odometry(pose, torch.as_tensor(odo, dtype=torch.float64))
+            worst = max(worst, float(np.abs(pose.numpy() - est).max()))
+        if worst > 1e-4:  # float32 steps and the recording's 6 significant digits
+            raise AssertionError(f"odometry replay is {worst} off the recorded odometry integrated")
+        say("cli-replay", max_abs_difference=worst, tolerance=1e-4)
+    for k in kernels:  # each path's count was read with the counters set to 0 before it
+        k["launches"] = k.get("launches", 0) + total[k["name"]]
+        k.setdefault("launches_by_path", {})["cli"] = total[k["name"]]
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=pathlib.Path, default=None,
                     help="another checkout whose kernels are timed on the same inputs")
+    ap.add_argument("--phases", default="kernels,bench,sync,cli",
+                    help="comma-separated subset of kernels,bench,sync,cli (default: all)")
     args = ap.parse_args()
+    phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; a GPU is required", file=sys.stderr)
         sys.exit(2)
@@ -351,28 +578,17 @@ def main():
         say("parent-build", seconds=time.perf_counter() - t0, root=str(args.parent),
             ptxas=[ln.strip() for ln in plib.build_log().splitlines() if "registers" in ln])
 
-    kernels = [beam_phase(dev, parent), fused_phase(dev, parent)]
-
-    beam_kernel.beam_scan_batch.launches = 0
-    fused_kernel.fused_stage.launches = 0
-    result = run_bench(frames=300, device=dev)
-    launches = {"beam_scan": beam_kernel.beam_scan_batch.launches,
-                "fused_stage": fused_kernel.fused_stage.launches}
-    frames_run = 2 * result["frames"]  # warm-up run + timed run
-    for name, n in launches.items():
-        if n != frames_run:
-            raise AssertionError(f"{name} launched {n} times over {frames_run} frames")
-    if not np.isfinite(result["ate_rmse_loc"]) or result["ate_rmse_loc"] >= ATE_LIMIT:
-        raise AssertionError(f"ATE {result['ate_rmse_loc']} not below {ATE_LIMIT}")
-    say("main-path", **result, launches=launches)
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
-
-    syncs = host_syncs(10, dev)
-    ours = [s for s in syncs if in_package(s[0])]
-    if ours:
-        raise AssertionError(f"the main path makes the host wait for the device: {ours}")
-    say("sync-check", frames=10, syncs=syncs)
+    kernels = [beam_phase(dev, parent), fused_phase(dev, parent)] if "kernels" in phases else []
+    if "bench" in phases:
+        bench_phase(dev, kernels)
+    if "sync" in phases:
+        syncs = host_syncs(10, dev)
+        ours = [s for s in syncs if in_package(s[0])]
+        if ours:
+            raise AssertionError(f"the main path makes the host wait for the device: {ours}")
+        say("sync-check", frames=10, syncs=syncs)
+    if "cli" in phases:
+        cli_phase(dev, kernels)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

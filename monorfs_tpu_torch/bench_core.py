@@ -17,7 +17,7 @@ from . import resolve_device
 from .config import Config
 from .io.world import World, parse_commands
 from .sim import vehicle as vehicle_mod
-from .sim.simulation import model_for_config
+from .sim.simulation import draw_frames, model_for_config
 from .slam import phd
 
 CHUNK = 50
@@ -71,17 +71,10 @@ def build_runner(cfg: Config, world: World, particles: int, phd_cfg=None,
 
 def draw_chunk(runner: Runner, gen, n, landmarks, dtype):
     """Every random draw of n frames, made in bulk on the device."""
-    dev, d = runner.device, runner.model.meas_dim
-    p, t = runner.cfg.num_particles, runner.model.pose.odo_dim
-    kw = dict(generator=gen, dtype=dtype, device=dev)
-    return dict(
-        odo_normals=torch.randn((n, t), **kw),
-        detect_u=torch.rand((n, landmarks), **kw),
-        meas_normals=torch.randn((n, landmarks, d), **kw),
-        clutter_draw=torch.poisson(runner.vparams.clutter_count.expand(n), generator=gen),
-        clutter_u=torch.rand((n, runner.max_clutter, d), **kw),
-        motion_normals=torch.randn((n, p, t), **kw),
-        resample_u=torch.rand((n,), **kw),
+    return draw_frames(
+        gen, n, landmarks, runner.model.meas_dim, runner.model.pose.odo_dim,
+        runner.cfg.num_particles, runner.max_clutter, runner.vparams.clutter_count,
+        dtype, runner.device,
     )
 
 

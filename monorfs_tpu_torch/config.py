@@ -1,13 +1,32 @@
-"""Run configuration: the port's own copy of monorfs_tpu's Config fields and
-model presets (reference: mono-rfs-lib/Config.cs:43-263), plus `phd_params`
-returning the PHD navigator parameters as torch tensors."""
+"""Run configuration: the port's own copy of monorfs_tpu's Config
+(reference: mono-rfs-lib/Config.cs:43-310): the fields, the model presets,
+the `Name: value` descriptor format with Octave-style matrices that cfg files
+and recordings carry, plus `phd_params` returning the PHD navigator
+parameters as torch tensors."""
 
 import dataclasses
+import re
 
 import numpy as np
 import torch
 
 from . import resolve_device
+
+
+def _parse_matrix(text):
+    """Parse an Octave-style jagged matrix: [a b; c d] (Config.cs:173-180)."""
+    text = text.strip()
+    if text.startswith("["):
+        text = text[1:]
+    if text.endswith("]"):
+        text = text[:-1]
+    rows = [r.strip() for r in text.split(";") if r.strip()]
+    return np.array([[float(v) for v in re.split(r"[,\s]+", r) if v] for r in rows])
+
+
+def _format_matrix(mat):
+    mat = np.atleast_2d(np.asarray(mat, dtype=float))
+    return "[" + "; ".join(" ".join(repr(float(v)) for v in row) for row in mat) + "]"
 
 
 @dataclasses.dataclass
@@ -119,6 +138,111 @@ class Config:
         if model_name not in presets:
             raise ValueError(f"unknown model {model_name}")
         presets[model_name]()
+
+    # reference-format (de)serialization
+
+    _FIELD_MAP = {
+        "NParallel": ("n_parallel", int),
+        "Model": ("model", str),
+        "AxisLimit": ("axis_limit", float),
+        "MeasureElapsed": ("measure_elapsed", float),
+        "MapClip": ("map_clip", "vector"),
+        "UseOdometry": ("use_odometry", bool),
+        "CheckpointCycleTime": ("checkpoint_cycle_time", int),
+        "MotionCovariance": ("motion_covariance", "matrix"),
+        "MeasurementCovariance": ("measurement_covariance", "matrix"),
+        "DetectionProbability": ("detection_probability", float),
+        "ClutterDensity": ("clutter_density", float),
+        "PerfectStill": ("perfect_still", bool),
+        "VisibilityRamp": ("visibility_ramp", "vector"),
+        "KinectDelta": ("kinect_delta", int),
+        "KeypointFilter": ("keypoint_filter", bool),
+        "SidebarJpegQuality": ("sidebar_jpeg_quality", int),
+        "ShowVisible": ("show_visible", bool),
+        "DensityDistanceThreshold": ("density_distance_threshold", float),
+        "BirthCovariance": ("birth_covariance", "matrix"),
+        "BirthWeight": ("birth_weight", float),
+        "MinWeight": ("min_weight", float),
+        "MinEffectiveParticle": ("min_effective_particle", float),
+        "MaxQuantity": ("max_quantity", int),
+        "MergeThreshold": ("merge_threshold", float),
+        "ExplorationThreshold": ("exploration_threshold", float),
+        "RenderAllParticles": ("render_all_particles", bool),
+        "MotionCovarianceMultiplier": ("motion_covariance_multiplier", float),
+        "MeasurementCovarianceMultiplier": (
+            "measurement_covariance_multiplier",
+            float,
+        ),
+        "NavigatorPD": ("navigator_pd", float),
+        "NavigatorClutterDensity": ("navigator_clutter_density", float),
+        "GradientAscentRate": ("gradient_ascent_rate", float),
+        "GradientClip": ("gradient_clip", float),
+        "LoopySweeps": ("loopy_sweeps", int),
+        "MatchThreshold": ("match_threshold", float),
+        "NewLandmarkThreshold": ("new_landmark_threshold", int),
+        "DAAlgorithm": ("da_algorithm", str),
+        "OdometryMergeThreshold": ("odometry_merge_threshold", float),
+    }
+
+    def apply_descriptor(self, lines):
+        """Apply `Name: value` lines, leaving missing fields as-is
+        (Config.FromDescriptor, Config.cs:155-209). If the descriptor sets
+        the Model, model defaults are applied first so later lines override
+        them (mirrors the reference behavior where presets run before file
+        parsing and cfg files list Model first)."""
+        parsed = []
+        for line in lines:
+            parts = line.split(":", 1)
+            if len(parts) != 2:
+                continue
+            name, value = parts[0].strip(), parts[1].strip()
+            if name not in self._FIELD_MAP:
+                continue
+            parsed.append((name, value))
+
+        for name, value in parsed:
+            if name == "Model":
+                self.set_model_defaults(value)
+                break
+
+        for name, value in parsed:
+            field, kind = self._FIELD_MAP[name]
+            if kind == "matrix":
+                setattr(self, field, _parse_matrix(value))
+            elif kind == "vector":
+                setattr(self, field, _parse_matrix(value)[0])
+            elif kind is bool:
+                setattr(self, field, value.strip().lower() == "true")
+            elif kind is int:
+                setattr(self, field, int(value))
+            elif kind is float:
+                setattr(self, field, float(value))
+            else:
+                setattr(self, field, value)
+        return self
+
+    @classmethod
+    def from_file(cls, filename):
+        cfg = cls()
+        with open(filename) as f:
+            cfg.apply_descriptor(f.read().splitlines())
+        return cfg
+
+    def to_descriptor(self) -> str:
+        """Serialize in the reference `Name: value` format
+        (Config.ToString, Config.cs:268-309)."""
+        out = []
+        for name, (field, kind) in self._FIELD_MAP.items():
+            val = getattr(self, field)
+            if val is None:
+                continue
+            if kind in ("matrix", "vector"):
+                out.append(f"{name}: {_format_matrix(val)}")
+            elif kind is bool:
+                out.append(f"{name}: {bool(val)}")
+            else:
+                out.append(f"{name}: {val}")
+        return "\n".join(out)
 
     def phd_params(self, dtype=torch.float32, device="cuda"):
         """PHDParams tensors the navigator consumes (covariance multipliers

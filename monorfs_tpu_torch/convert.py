@@ -9,7 +9,8 @@ import numpy as np
 import torch
 
 from . import resolve_device
-from .gm.mixture import SGM
+from .config import Config
+from .gm.mixture import GM, SGM
 from .sim.vehicle import VehicleState
 from .slam import phd
 
@@ -26,8 +27,9 @@ def _t(x, dtype, dev):
 
 def phd_params(fields, dtype=torch.float32, device="cuda"):
     """PHDParams from a mapping of the JAX PHDParams fields (e.g.
-    `{k: np.asarray(v) for k, v in params._asdict().items()}`). The JAX
-    depth_map is not carried: PRM3D has no depth occlusion."""
+    `{k: np.asarray(v) for k, v in params._asdict().items()}`), for any
+    measurement dimension and pose width. The JAX depth_map is not carried:
+    no ported model has depth occlusion."""
     return phd.make_params(
         dtype=dtype, device=device, **{k: np.asarray(fields[k]) for k in _PARAM_FIELDS}
     )
@@ -58,3 +60,20 @@ def vehicle_state(pose, landmarks, landmark_mask, dtype=torch.float32, device="c
         landmarks=_t(landmarks, dtype, dev),
         landmark_mask=_t(landmark_mask, torch.bool, dev),
     )
+
+
+def gm(mean, cov, logw, dtype=torch.float32, device="cuda"):
+    """AoS GM from numpy: mean [..., K, 3], cov [..., K, 3, 3], logw [..., K]."""
+    dev = resolve_device(device)
+    return GM(_t(mean, dtype, dev), _t(cov, dtype, dev), _t(logw, dtype, dev))
+
+
+def config(fields):
+    """The port's Config from a mapping of a JAX Config's fields
+    (`dataclasses.asdict(cfg)`): same names, arrays copied."""
+    out = Config()
+    for name, value in fields.items():
+        if not hasattr(out, name):
+            raise ValueError(f"Config has no field {name}")
+        setattr(out, name, np.array(value) if isinstance(value, np.ndarray) else value)
+    return out

@@ -1,4 +1,5 @@
-// PHD births + correct + prune for every particle in one launch (PRM3D).
+// PHD births + correct + prune for every particle in one launch, for the
+// three model families (PRM3D camera, Linear2D, Linear1D).
 //
 // Replaces: monorfs_tpu/slam/fused_pallas.py::fused_stage (Pallas body
 // _make_kernel), with the kernel semantics of fused_pallas.py:21-41.
@@ -26,8 +27,15 @@
 //
 // Design: one block of 256 threads per particle. The predicted mixture, the
 // per-component EKF channels, the [M, KP] pair log-weights and the K x K
-// `lower` merge relation (as bitmask words) stay in shared memory. Gathers
-// are indices, not one-hot products. Every phase uses the whole block, and
+// `lower` merge relation (as bitmask words) stay in shared memory. Where that
+// layout exceeds a block's shared memory (K0 = 600: the pair table alone is
+// 124 KB at M = 48), the pair table lives in a per-particle workspace in
+// device memory that the caller hands in, and everything else stays shared;
+// the two layouts are two instantiations (PAIRS_GLOBAL). The model-specific
+// parts (pose -> frame, back-projection, measurement and its landmark
+// Jacobian, fuzzy visibility, the measurement dimension D) are a template
+// parameter, one instantiation per family. Gathers are indices, not one-hot
+// products. Every phase uses the whole block, and
 // no thread runs a serial loop over K or KP:
 //   births, pairs   warp per measurement row, lanes over components, warp sums;
 //   EKF             thread per live component (one pass: its cost is one
@@ -50,7 +58,10 @@
 // births ~11 k, EKF ~5 k, pairs ~8.7 k, cut ~2.2 k (~15 k when the cap
 // binds), compaction ~8.5 k, merge relation ~20 k (ranking ~5 k, tests
 // ~14 k: issue-bound where two blocks share an SM), leader rounds ~4 k,
-// pooling ~7.8 k; ~68 k in all. Every elementwise formula
+// pooling ~7.8 k; ~68 k in all. At K0 = 600 with the pair table in device
+// memory a thread owns ~124 cut entries, of which the first 16 sit in
+// registers: a bisection count re-reads the rest, so a cut whose cap binds
+// is the slow phase there. Every elementwise formula
 // follows the plain version's operation order, and the build uses
 // -fmad=false, so the two differ only where a reduction sums in another
 // order.
@@ -70,25 +81,25 @@ constexpr float LOG2PI3 = (float)(3.0 * 1.8378770664093453);
 constexpr int THREADS = 256;
 constexpr int NWARPS = THREADS / 32;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int NPRM = 28;
 constexpr int CUT_REGS = 16;  // cut entries a thread keeps in registers
 
-struct Cam {
-  float f, f2, left, right, top, bottom, rmin, rmax;
+// the model's own parameters, by value (fused_kernel.model_params):
+// PRM3D: f, f^2, film left, right, top, bottom, range min, max; linear: range
+struct ModelParams {
+  float v[8];
 };
 
-// parameter vector layout (fused_kernel.pack_params)
-enum {
-  P_PD = 0, P_CLUTTER, P_BIRTH_W, P_MIN_W, P_MERGE, P_EXPLORE, P_RADIUS,
-  P_RAMP = 7, P_R = 10, P_BC = 19
-};
+// parameter vector layout (fused_kernel.pack_params): 7 scalars, the
+// visibility ramp [D], the measurement covariance [D, D], the birth
+// covariance [3, 3]
+enum { P_PD = 0, P_CLUTTER, P_BIRTH_W, P_MIN_W, P_MERGE, P_EXPLORE, P_RADIUS, P_RAMP = 7 };
 
 // shared-memory layout, in 4-byte words
 struct Layout {
   int K, M, KP, NWK;
   size_t prm, pm, ekf, z, zl, bp, rowcnt, rowoff, cpair, om, oc, olw, fill,
       inv, w, lead, isl, bits, lbits, scratch, total;
-  __host__ __device__ Layout(int K0, int M_) {
+  __host__ __device__ Layout(int K0, int M_, bool pairs_global) {
     K = K0; M = M_; KP = K0 + M_; NWK = (K0 + 31) / 32;
     size_t o = 0;
     prm = o; o += 32;
@@ -100,7 +111,7 @@ struct Layout {
     bp = o; o += 3 * (size_t)M;       // back-projections
     rowcnt = o; o += M;
     rowoff = o; o += M;
-    cpair = o; o += (size_t)M * KP;   // pair log-weights [M][KP]
+    cpair = o; o += pairs_global ? 0 : (size_t)M * KP;  // pair log-weights [M][KP]
     om = o; o += 3 * (size_t)K;       // compacted survivors
     oc = o; o += 6 * (size_t)K;
     olw = o; o += K;
@@ -191,33 +202,165 @@ __device__ __forceinline__ void sym_to_mat(const float c[6], float a[3][3]) {
   a[2][0] = c[2]; a[2][1] = c[4]; a[2][2] = c[5];
 }
 
-__device__ __forceinline__ float fuzzy(const Cam& cam, const float* ramp, float px, float py, float rng) {
-  float d = jmin((px - cam.left) / ramp[0], (cam.right - px) / ramp[0]);
-  d = jmin(d, (py - cam.top) / ramp[1]);
-  d = jmin(d, (cam.bottom - py) / ramp[1]);
-  d = jmin(d, (rng - cam.rmin) / ramp[2]);
-  d = jmin(d, (cam.rmax - rng) / ramp[2]);
-  return jmin(jmax(d, 0.f), 1.f);
+// small D x D algebra, D in {1, 2, 3}, in smallmat's operation order
+template <int D>
+__device__ __forceinline__ float detn(const float (&a)[D][D]) {
+  if constexpr (D == 1) {
+    return a[0][0];
+  } else if constexpr (D == 2) {
+    return a[0][0] * a[1][1] - a[0][1] * a[1][0];
+  } else {
+    return det3(a);
+  }
 }
 
+template <int D>
+__device__ __forceinline__ void invn(const float (&a)[D][D], float dt, float (&o)[D][D]) {
+  if constexpr (D == 1) {
+    o[0][0] = 1.0f / dt;
+  } else if constexpr (D == 2) {
+    const float r = 1.0f / dt;
+    o[0][0] = a[1][1] * r;
+    o[0][1] = -a[0][1] * r;
+    o[1][0] = -a[1][0] * r;
+    o[1][1] = a[0][0] * r;
+  } else {
+    inv3(a, dt, o);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ float quadn(const float (&x)[D], const float (&a)[D][D]) {
+  float s = x[0] * a[0][0] * x[0];
+#pragma unroll
+  for (int i = 0; i < D; ++i)
+#pragma unroll
+    for (int j = 0; j < D; ++j)
+      if (i + j > 0) s = s + x[i] * a[i][j] * x[j];
+  return s;
+}
+
+// ---- model families ---------------------------------------------------------------
+// Each gives: D; frame(pose) once per block; to_map (back-projection of a
+// measurement); measure (h and the landmark Jacobian dh/dm [D][3]); fuzzy
+// (the visibility ramp in [0, 1]).
+
+struct Prm3d {  // pixel-range camera, pose = location + quaternion
+  static constexpr int D = 3, S = 7;
+  struct Frame {
+    float loc[3];
+    float R[3][3];
+  };
+  static __device__ __forceinline__ void frame(const float* pose, Frame& fr) {
+    for (int i = 0; i < 3; ++i) fr.loc[i] = pose[i];
+    const float qw = pose[3], qx = pose[4], qy = pose[5], qz = pose[6];
+    const float xx = qx * qx, yy = qy * qy, zz = qz * qz;
+    const float xy = qx * qy, xz = qx * qz, yz = qy * qz;
+    const float xw = qx * qw, yw = qy * qw, zw = qz * qw;
+    float(&R)[3][3] = fr.R;
+    R[0][0] = 1.f - 2.f * (yy + zz); R[0][1] = 2.f * (xy - zw); R[0][2] = 2.f * (xz + yw);
+    R[1][0] = 2.f * (xy + zw); R[1][1] = 1.f - 2.f * (xx + zz); R[1][2] = 2.f * (yz - xw);
+    R[2][0] = 2.f * (xz - yw); R[2][1] = 2.f * (yz + xw); R[2][2] = 1.f - 2.f * (xx + yy);
+  }
+  static __device__ __forceinline__ void to_map(const ModelParams& mp, const Frame& fr,
+                                                const float (&z)[3], float (&out)[3]) {
+    const float f = mp.v[0], f2 = mp.v[1];
+    const float px = z[0], py = z[1], rng = z[2];
+    const float alpha = rng / sqrtf(f2 + px * px + py * py);
+    const float d0 = alpha * px, d1 = alpha * py, d2 = alpha * f;
+    for (int i = 0; i < 3; ++i)
+      out[i] = fr.loc[i] + dot3(fr.R[i][0], d0, fr.R[i][1], d1, fr.R[i][2], d2);
+  }
+  static __device__ __forceinline__ void measure(const ModelParams& mp, const Frame& fr,
+                                                 const float (&m)[3], float (&h)[3],
+                                                 float (&hj)[3][3]) {
+    const float f = mp.v[0];
+    const float(&R)[3][3] = fr.R;
+    const float d[3] = {m[0] - fr.loc[0], m[1] - fr.loc[1], m[2] - fr.loc[2]};
+    const float lx = dot3(R[0][0], d[0], R[1][0], d[1], R[2][0], d[2]);
+    const float ly = dot3(R[0][1], d[0], R[1][1], d[1], R[2][1], d[2]);
+    const float lz = dot3(R[0][2], d[0], R[1][2], d[1], R[2][2], d[2]);
+    h[0] = f * lx / lz;
+    h[1] = f * ly / lz;
+    h[2] = sgn(lz) * sqrtf(dot3(d[0], d[0], d[1], d[1], d[2], d[2]));
+    const float sign = lz > 0.f ? 1.f : -1.f;
+    const float mag = sign * sqrtf(lx * lx + ly * ly + lz * lz);
+    const float jp[3][3] = {{f / lz, 0.f, -f * lx / (lz * lz)},
+                            {0.f, f / lz, -f * ly / (lz * lz)},
+                            {lx / mag, ly / mag, lz / mag}};
+    for (int i = 0; i < 3; ++i)
+      for (int j = 0; j < 3; ++j)
+        hj[i][j] = dot3(jp[i][0], R[j][0], jp[i][1], R[j][1], jp[i][2], R[j][2]);
+  }
+  static __device__ __forceinline__ float fuzzy(const ModelParams& mp, const float* ramp,
+                                                const float (&h)[3]) {
+    const float left = mp.v[2], right = mp.v[3], top = mp.v[4], bottom = mp.v[5];
+    const float rmin = mp.v[6], rmax = mp.v[7];
+    float d = jmin((h[0] - left) / ramp[0], (right - h[0]) / ramp[0]);
+    d = jmin(d, (h[1] - top) / ramp[1]);
+    d = jmin(d, (bottom - h[1]) / ramp[1]);
+    d = jmin(d, (h[2] - rmin) / ramp[2]);
+    d = jmin(d, (rmax - h[2]) / ramp[2]);
+    return jmin(jmax(d, 0.f), 1.f);
+  }
+};
+
+template <int DIM>
+struct Linear {  // pose = position; z = landmark - pose within a box
+  static constexpr int D = DIM, S = DIM;
+  struct Frame {
+    float loc[DIM];
+  };
+  static __device__ __forceinline__ void frame(const float* pose, Frame& fr) {
+    for (int i = 0; i < DIM; ++i) fr.loc[i] = pose[i];
+  }
+  static __device__ __forceinline__ void to_map(const ModelParams&, const Frame& fr,
+                                                const float (&z)[DIM], float (&out)[3]) {
+    for (int i = 0; i < 3; ++i) out[i] = 0.f;
+    for (int i = 0; i < DIM; ++i) out[i] = fr.loc[i] + z[i];
+  }
+  static __device__ __forceinline__ void measure(const ModelParams&, const Frame& fr,
+                                                 const float (&m)[3], float (&h)[DIM],
+                                                 float (&hj)[DIM][3]) {
+    for (int i = 0; i < DIM; ++i) {
+      h[i] = m[i] - fr.loc[i];
+      for (int k = 0; k < 3; ++k) hj[i][k] = i == k ? 1.f : 0.f;
+    }
+  }
+  static __device__ __forceinline__ float fuzzy(const ModelParams& mp, const float* ramp,
+                                                const float (&h)[DIM]) {
+    const float range = mp.v[0];
+    float d = jmin((h[0] + range) / ramp[0], (range - h[0]) / ramp[0]);
+    for (int i = 1; i < DIM; ++i) {
+      d = jmin(d, (h[i] + range) / ramp[i]);
+      d = jmin(d, (range - h[i]) / ramp[i]);
+    }
+    return jmin(jmax(d, 0.f), 1.f);
+  }
+};
+
+template <class Mdl, bool PAIRS_GLOBAL>
 __global__ void __launch_bounds__(THREADS)
 fused_stage_kernel(const float* __restrict__ prm_g, const float* __restrict__ pose_g,
                    const float* __restrict__ maps, const float* __restrict__ zg,
                    const int* __restrict__ zmask, float* __restrict__ pred,
-                   float* __restrict__ cor, int P, int K0, int M, int gate_top,
-                   int merge_rounds, Cam cam, long long* clk) {
+                   float* __restrict__ cor, float* __restrict__ work, int P, int K0, int M,
+                   int gate_top, int merge_rounds, ModelParams mp, long long* clk) {
   extern __shared__ float sm[];
   probe(clk, 0);
-  const Layout L(K0, M);
+  constexpr int D = Mdl::D;
+  constexpr int P_R = P_RAMP + D, P_BC = P_R + D * D, NPRM = P_BC + 9;
+  constexpr float LOG2PID = (float)(D * 1.8378770664093453);
+  const Layout L(K0, M, PAIRS_GLOBAL);
   const int KP = L.KP, K = L.K, NWK = L.NWK;
   const int p = blockIdx.x, t = threadIdx.x, lane = t & 31, warp = t >> 5;
 
   float* prm = sm + L.prm;
   float* pm = sm + L.pm;
   float* h = sm + L.ekf;
-  float* sinv = h + 3 * KP;
+  float* sinv = h + 3 * KP;   // [D * D][KP]
   float* slogm = h + 12 * KP;
-  float* gain = h + 13 * KP;
+  float* gain = h + 13 * KP;  // [3 * D][KP]
   float* covu = h + 22 * KP;
   float* logpd = h + 28 * KP;
   float* cmiss = h + 29 * KP;
@@ -228,7 +371,7 @@ fused_stage_kernel(const float* __restrict__ prm_g, const float* __restrict__ po
   float* bp = sm + L.bp;
   int* rowcnt = reinterpret_cast<int*>(sm + L.rowcnt);
   int* rowoff = reinterpret_cast<int*>(sm + L.rowoff);
-  float* cpair = sm + L.cpair;
+  float* cpair = PAIRS_GLOBAL ? work + (size_t)blockIdx.x * M * KP : sm + L.cpair;
   float* om = sm + L.om;
   float* oc = sm + L.oc;
   float* olw = sm + L.olw;
@@ -242,30 +385,20 @@ fused_stage_kernel(const float* __restrict__ prm_g, const float* __restrict__ po
   float* fscratch = sm + L.scratch;
   int* iscratch = reinterpret_cast<int*>(sm + L.scratch + 32);
 
-  // pose -> location and rotation R(q)
-  const float* pose = pose_g + (size_t)p * 7;
-  const float loc[3] = {pose[0], pose[1], pose[2]};
-  float R[3][3];
-  {
-    const float qw = pose[3], qx = pose[4], qy = pose[5], qz = pose[6];
-    const float xx = qx * qx, yy = qy * qy, zz = qz * qz;
-    const float xy = qx * qy, xz = qx * qz, yz = qy * qz;
-    const float xw = qx * qw, yw = qy * qw, zw = qz * qw;
-    R[0][0] = 1.f - 2.f * (yy + zz); R[0][1] = 2.f * (xy - zw); R[0][2] = 2.f * (xz + yw);
-    R[1][0] = 2.f * (xy + zw); R[1][1] = 1.f - 2.f * (xx + zz); R[1][2] = 2.f * (yz - xw);
-    R[2][0] = 2.f * (xz - yw); R[2][1] = 2.f * (yz + xw); R[2][2] = 1.f - 2.f * (xx + yy);
-  }
+  typename Mdl::Frame fr;
+  Mdl::frame(pose_g + (size_t)p * Mdl::S, fr);
 
   // ---- measurements and back-projections (to_map_soa) ----------------------
   for (int i = t; i < NPRM; i += THREADS) prm[i] = prm_g[i];
   for (int j = t; j < M; j += THREADS) {
-    const float px = zg[j * 3], py = zg[j * 3 + 1], rng = zg[j * 3 + 2];
-    zs[j] = px; zs[M + j] = py; zs[2 * M + j] = rng;
+    float zj[D], b[3];
+    for (int i = 0; i < D; ++i) {
+      zj[i] = zg[j * D + i];
+      zs[i * M + j] = zj[i];
+    }
     zl[j] = zmask[j] != 0 ? 1.f : 0.f;
-    const float alpha = rng / sqrtf(cam.f2 + px * px + py * py);
-    const float d0 = alpha * px, d1 = alpha * py, d2 = alpha * cam.f;
-    for (int i = 0; i < 3; ++i)
-      bp[i * M + j] = loc[i] + dot3(R[i][0], d0, R[i][1], d1, R[i][2], d2);
+    Mdl::to_map(mp, fr, zj, b);
+    for (int i = 0; i < 3; ++i) bp[i * M + j] = b[i];
   }
   __syncthreads();
   const float lminw = jmax(logf(prm[P_MIN_W]), -80.f);
@@ -335,41 +468,35 @@ fused_stage_kernel(const float* __restrict__ prm_g, const float* __restrict__ po
     float c6[6], cv[3][3];
     for (int i = 0; i < 6; ++i) c6[i] = pm[(3 + i) * KP + k];
     sym_to_mat(c6, cv);
-    const float d[3] = {pm[k] - loc[0], pm[KP + k] - loc[1], pm[2 * KP + k] - loc[2]};
-    const float lx = dot3(R[0][0], d[0], R[1][0], d[1], R[2][0], d[2]);
-    const float ly = dot3(R[0][1], d[0], R[1][1], d[1], R[2][1], d[2]);
-    const float lz = dot3(R[0][2], d[0], R[1][2], d[1], R[2][2], d[2]);
-    const float hx = cam.f * lx / lz, hy = cam.f * ly / lz;
-    const float hr = sgn(lz) * sqrtf(dot3(d[0], d[0], d[1], d[1], d[2], d[2]));
-    float pdk = alive ? fuzzy(cam, ramp, hx, hy, hr) * prm[P_PD] : 0.f;
+    const float mk[3] = {pm[k], pm[KP + k], pm[2 * KP + k]};
+    float hk[D], hj[D][3];
+    Mdl::measure(mp, fr, mk, hk, hj);
+    float pdk = alive ? Mdl::fuzzy(mp, ramp, hk) * prm[P_PD] : 0.f;
     pdk = jmin(jmax(pdk, 0.f), PD_MAX);
     const float miss = alive ? lw + log1pf(-pdk) : DEAD;
 
-    const float sign = lz > 0.f ? 1.f : -1.f;
-    const float mag = sign * sqrtf(lx * lx + ly * ly + lz * lz);
-    const float jp[3][3] = {{cam.f / lz, 0.f, -cam.f * lx / (lz * lz)},
-                            {0.f, cam.f / lz, -cam.f * ly / (lz * lz)},
-                            {lx / mag, ly / mag, lz / mag}};
-    float hj[3][3], pht[3][3], s[3][3], si[3][3], g[3][3], ikh[3][3], a[3][3];
+    float pht[3][D], s[D][D], si[D][D], g[3][D], ikh[3][3], a[3][3];
     for (int i = 0; i < 3; ++i)
-      for (int j = 0; j < 3; ++j)
-        hj[i][j] = dot3(jp[i][0], R[j][0], jp[i][1], R[j][1], jp[i][2], R[j][2]);
-    for (int i = 0; i < 3; ++i)
-      for (int j = 0; j < 3; ++j)
+      for (int j = 0; j < D; ++j)
         pht[i][j] = dot3(cv[i][0], hj[j][0], cv[i][1], hj[j][1], cv[i][2], hj[j][2]);
-    for (int i = 0; i < 3; ++i)
-      for (int j = 0; j < 3; ++j)
+    for (int i = 0; i < D; ++i)
+      for (int j = 0; j < D; ++j)
         s[i][j] = dot3(hj[i][0], pht[0][j], hj[i][1], pht[1][j], hj[i][2], pht[2][j]) +
-                  Rm[i * 3 + j];
-    const float det_s = det3(s);
-    inv3(s, det_s, si);
+                  Rm[i * D + j];
+    const float det_s = detn<D>(s);
+    invn<D>(s, det_s, si);
     for (int i = 0; i < 3; ++i)
-      for (int j = 0; j < 3; ++j)
-        g[i][j] = dot3(pht[i][0], si[0][j], pht[i][1], si[1][j], pht[i][2], si[2][j]);
+      for (int j = 0; j < D; ++j) {
+        float acc = pht[i][0] * si[0][j];
+        for (int c = 1; c < D; ++c) acc = acc + pht[i][c] * si[c][j];
+        g[i][j] = acc;
+      }
     for (int i = 0; i < 3; ++i)
-      for (int j = 0; j < 3; ++j)
-        ikh[i][j] = (i == j ? 1.f : 0.f) -
-                    dot3(g[i][0], hj[0][j], g[i][1], hj[1][j], g[i][2], hj[2][j]);
+      for (int j = 0; j < 3; ++j) {
+        float acc = g[i][0] * hj[0][j];
+        for (int c = 1; c < D; ++c) acc = acc + g[i][c] * hj[c][j];
+        ikh[i][j] = (i == j ? 1.f : 0.f) - acc;
+      }
     for (int i = 0; i < 3; ++i)
       for (int j = 0; j < 3; ++j)
         a[i][j] = dot3(ikh[i][0], cv[0][j], ikh[i][1], cv[1][j], ikh[i][2], cv[2][j]);
@@ -378,12 +505,10 @@ fused_stage_kernel(const float* __restrict__ prm_g, const float* __restrict__ po
       const float v = 0.5f * (a[up[i][0]][up[i][1]] + a[up[i][1]][up[i][0]]);
       covu[i * KP + k] = isfinite(v) ? v : 0.f;
     }
-    h[k] = hx; h[KP + k] = hy; h[2 * KP + k] = hr;
-    for (int i = 0; i < 9; ++i) {
-      sinv[i * KP + k] = si[i / 3][i % 3];
-      gain[i * KP + k] = g[i / 3][i % 3];
-    }
-    slogm[k] = -0.5f * (LOG2PI3 + logf(det_s));
+    for (int i = 0; i < D; ++i) h[i * KP + k] = hk[i];
+    for (int i = 0; i < D * D; ++i) sinv[i * KP + k] = si[i / D][i % D];
+    for (int i = 0; i < 3 * D; ++i) gain[i * KP + k] = g[i / D][i % D];
+    slogm[k] = -0.5f * (LOG2PID + logf(det_s));
     logpd[k] = logf(jmax(pdk, 1e-30f));
     cmiss[k] = miss >= lminw ? miss : DEAD;
   }
@@ -404,10 +529,10 @@ fused_stage_kernel(const float* __restrict__ prm_g, const float* __restrict__ po
                           lw > ALIVE_THRESHOLD && zlive;
         float ln = DEAD;
         if (gate) {  // the likelihood only where it is read
-          float in[3], a[3][3];
-          for (int i = 0; i < 3; ++i) in[i] = zs[i * M + j] - h[i * KP + k];
-          for (int i = 0; i < 9; ++i) a[i / 3][i % 3] = sinv[i * KP + k];
-          float q = slogm[k] - 0.5f * quadform(in, a);
+          float in[D], a[D][D];
+          for (int i = 0; i < D; ++i) in[i] = zs[i * M + j] - h[i * KP + k];
+          for (int i = 0; i < D * D; ++i) a[i / D][i % D] = sinv[i * KP + k];
+          float q = slogm[k] - 0.5f * quadn<D>(in, a);
           if (!isfinite(q)) q = DEAD;
           ln = logpd[k] + lw + q;
           acc += expf(ln);
@@ -594,10 +719,12 @@ fused_stage_kernel(const float* __restrict__ prm_g, const float* __restrict__ po
     const int f = isl[slot];
     if (f < 0) continue;
     const int j = f / KP, k = f - j * KP;
-    const float in0 = zs[j] - h[k], in1 = zs[M + j] - h[KP + k], in2 = zs[2 * M + j] - h[2 * KP + k];
+    float in[D];
+    for (int c = 0; c < D; ++c) in[c] = zs[c * M + j] - h[c * KP + k];
     for (int i = 0; i < 3; ++i) {
-      const float mu = pm[i * KP + k] + dot3(gain[(3 * i) * KP + k], in0, gain[(3 * i + 1) * KP + k],
-                                             in1, gain[(3 * i + 2) * KP + k], in2);
+      float gd = gain[(D * i) * KP + k] * in[0];
+      for (int c = 1; c < D; ++c) gd = gd + gain[(D * i + c) * KP + k] * in[c];
+      const float mu = pm[i * KP + k] + gd;
       om[i * K + slot] = isfinite(mu) ? mu : 0.f;
     }
     for (int c = 0; c < 6; ++c) oc[c * K + slot] = covu[c * KP + k];
@@ -745,29 +872,53 @@ fused_stage_kernel(const float* __restrict__ prm_g, const float* __restrict__ po
   probe(clk, 9);
 }
 
-std::atomic<size_t> smem_set[kMaxDevices];
+template <class Mdl, bool PAIRS_GLOBAL>
+int launch(const float* prm, const float* pose, const float* maps, const float* z,
+           const int* zmask, float* pred, float* cor, float* work, int P, int K0, int M,
+           int gate_top, int merge_rounds, const ModelParams& mp, long long* clk,
+           cudaStream_t stream) {
+  static std::atomic<size_t> smem_set[kMaxDevices];  // one per instantiation
+  const size_t smem = Layout(K0, M, PAIRS_GLOBAL).total * sizeof(float);
+  auto kernel = fused_stage_kernel<Mdl, PAIRS_GLOBAL>;
+  cudaError_t err = allow_smem((const void*)kernel, smem_set, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<P, THREADS, smem, stream>>>(prm, pose, maps, z, zmask, pred, cor, work, P, K0, M,
+                                       gate_top, merge_rounds, mp, clk);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
-extern "C" size_t fused_stage_smem_bytes(int K0, int M) {
-  return Layout(K0, M).total * sizeof(float);
+// Shared memory one block asks for, with the pair table in shared memory or
+// (pairs_global) in the device-memory workspace.
+extern "C" size_t fused_stage_smem_bytes(int K0, int M, int pairs_global) {
+  return Layout(K0, M, pairs_global != 0).total * sizeof(float);
 }
 
-// prm [28]; pose [P, 7]; maps [10, P, K0]; z [M, 3] f32; zmask [M] int32;
-// pred [10, P, K0+M] and cor [10, P, K0] f32 out; clk [P, NPHASE+1] int64
-// phase clocks, or null (the main path).
-extern "C" int fused_stage_launch(const float* prm, const float* pose, const float* maps,
-                                  const float* z, const int* zmask, float* pred, float* cor,
-                                  int P, int K0, int M, int gate_top, int merge_rounds,
-                                  float f, float f2, float left, float right, float top,
-                                  float bottom, float rmin, float rmax, long long* clk,
-                                  void* stream) {
+// meas_dim 3 = PRM3D, 2 = Linear2D, 1 = Linear1D. prm [16 + D + D*D]; pose
+// [P, S]; maps [10, P, K0]; z [M, D] f32; zmask [M] int32; pred [10, P, K0+M]
+// and cor [10, P, K0] f32 out; work: null (pair table in shared memory) or
+// [P, M, K0+M] f32 scratch; m0..m7 the model's parameters (ModelParams); clk
+// [P, NPHASE+1] int64 phase clocks, or null (the main path).
+extern "C" int fused_stage_launch(int meas_dim, const float* prm, const float* pose,
+                                  const float* maps, const float* z, const int* zmask,
+                                  float* pred, float* cor, float* work, int P, int K0, int M,
+                                  int gate_top, int merge_rounds, float m0, float m1, float m2,
+                                  float m3, float m4, float m5, float m6, float m7,
+                                  long long* clk, void* stream) {
   if (P == 0) return 0;
-  const size_t smem = Layout(K0, M).total * sizeof(float);
-  cudaError_t err = allow_smem((const void*)fused_stage_kernel, smem_set, smem);
-  if (err != cudaSuccess) return (int)err;
-  const Cam cam{f, f2, left, right, top, bottom, rmin, rmax};
-  fused_stage_kernel<<<P, THREADS, smem, (cudaStream_t)stream>>>(
-      prm, pose, maps, z, zmask, pred, cor, P, K0, M, gate_top, merge_rounds, cam, clk);
-  return (int)cudaGetLastError();
+  const ModelParams mp{{m0, m1, m2, m3, m4, m5, m6, m7}};
+  const cudaStream_t st = (cudaStream_t)stream;
+#define FUSED_LAUNCH(MDL)                                                                    \
+  (work ? launch<MDL, true>(prm, pose, maps, z, zmask, pred, cor, work, P, K0, M, gate_top, \
+                            merge_rounds, mp, clk, st)                                       \
+        : launch<MDL, false>(prm, pose, maps, z, zmask, pred, cor, work, P, K0, M, gate_top, \
+                             merge_rounds, mp, clk, st))
+  switch (meas_dim) {
+    case 3: return FUSED_LAUNCH(Prm3d);
+    case 2: return FUSED_LAUNCH(Linear<2>);
+    case 1: return FUSED_LAUNCH(Linear<1>);
+  }
+#undef FUSED_LAUNCH
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,18 +1,91 @@
-"""Masked fixed-capacity Gaussian-mixture maps, structure-of-arrays form
-(Map.cs:41-327): the torch twin of the SoA half of monorfs_tpu.gm.mixture.
+"""Masked fixed-capacity Gaussian-mixture maps (Map.cs:41-327): the torch
+twin of monorfs_tpu.gm.mixture.
 
-Every leaf of an SGM is a plain [..., K] tensor; dead slots carry log-weight
-DEAD. Covariances are symmetric and stored as their 6 unique entries."""
+The step runs on the structure-of-arrays form: every leaf of an SGM is a
+plain [..., K] tensor, dead slots carry log-weight DEAD, and covariances are
+symmetric, stored as their 6 unique entries. The array-of-structures GM
+(mean [..., K, 3], cov [..., K, 3, 3]) serves the specification path, the
+recording and the estimates."""
 
 from typing import NamedTuple
 
 import torch
 
-from . import smallmat
+from . import gaussian, smallmat
 
 # Finite stand-in for log(0): keeps arithmetic NaN-free.
 DEAD = -1.0e30
 ALIVE_THRESHOLD = -0.5e30
+
+
+class GM(NamedTuple):
+    """A batched Gaussian mixture in array-of-structures form. Leading dims
+    broadcast; K is the component axis, D the state dim (3 for maps)."""
+
+    mean: torch.Tensor  # [..., K, D]
+    cov: torch.Tensor  # [..., K, D, D]
+    logw: torch.Tensor  # [..., K]
+
+    @property
+    def capacity(self):
+        return self.logw.shape[-1]
+
+    @property
+    def dim(self):
+        return self.mean.shape[-1]
+
+
+def empty(k, dim=3, dtype=torch.float32, batch=(), device=None):
+    batch = tuple(batch)
+    eye = torch.eye(dim, dtype=dtype, device=device)
+    return GM(
+        mean=torch.zeros(batch + (k, dim), dtype=dtype, device=device),
+        cov=eye.expand(batch + (k, dim, dim)).clone(),
+        logw=torch.full(batch + (k,), DEAD, dtype=dtype, device=device),
+    )
+
+
+def alive(gm):
+    return gm.logw > ALIVE_THRESHOLD
+
+
+def count(gm):
+    return torch.sum(alive(gm), dim=-1)
+
+
+def concat(a: GM, b: GM) -> GM:
+    return GM(
+        mean=torch.cat([a.mean, b.mean], dim=-2),
+        cov=torch.cat([a.cov, b.cov], dim=-3),
+        logw=torch.cat([a.logw, b.logw], dim=-1),
+    )
+
+
+def evaluate(gm: GM, x, radius=None):
+    """Mixture density at point x [..., D] (Map.cs:192-220). With `radius`,
+    only components whose mean lies within the Euclidean ball contribute."""
+    logp = gaussian.logpdf(x[..., None, :], gm.mean, gm.cov)
+    mask = alive(gm)
+    if radius is not None:
+        dist2 = torch.sum((gm.mean - x[..., None, :]) ** 2, dim=-1)
+        mask = mask & (dist2 <= radius * radius)
+    vals = torch.exp(gm.logw + logp)
+    return torch.sum(torch.where(mask, vals, torch.zeros_like(vals)), dim=-1)
+
+
+def evaluate_many(gm: GM, points, radius=None):
+    """Mixture density at many points [E, D] -> [E]; component inverses and
+    normalisers are computed once, not per point."""
+    inv = gaussian.inv(gm.cov)  # [K, D, D]
+    logmult = gaussian.log_multiplier(gm.cov)  # [K]
+    diff = points[:, None, :] - gm.mean[None, :, :]  # [E, K, D]
+    m2 = torch.einsum("ekd,kdc,ekc->ek", diff, inv, diff)
+    logp = logmult[None, :] - 0.5 * m2
+    mask = alive(gm)[None, :]
+    if radius is not None:
+        mask = mask & (torch.sum(diff * diff, dim=-1) <= radius * radius)
+    vals = torch.exp(gm.logw[None, :] + logp)
+    return torch.sum(torch.where(mask, vals, torch.zeros_like(vals)), dim=-1)
 
 
 class SGM(NamedTuple):
@@ -42,6 +115,35 @@ class SGM(NamedTuple):
     def cov_mat(self):
         """Symmetric covariance as a smallmat list-of-lists (aliases)."""
         return smallmat.sym_to_mat(self.cov6())
+
+    # array-of-structures views for consumers off the step (estimates,
+    # recording)
+    @property
+    def mean(self):
+        return torch.stack(self.mean_list(), dim=-1)
+
+    @property
+    def cov(self):
+        return smallmat.to_tensor(self.cov_mat())
+
+
+def soa_of(gm: GM) -> SGM:
+    m, c = gm.mean, gm.cov
+    return SGM(
+        m[..., 0], m[..., 1], m[..., 2],
+        c[..., 0, 0], c[..., 0, 1], c[..., 0, 2],
+        c[..., 1, 1], c[..., 1, 2], c[..., 2, 2],
+        gm.logw,
+    )
+
+
+def aos_of(sgm: SGM) -> GM:
+    return GM(sgm.mean, sgm.cov, sgm.logw)
+
+
+def take_soa(sgm: SGM, idx, axis=0) -> SGM:
+    """Gather components / particles along `axis` of every leaf."""
+    return map_soa(lambda x: torch.index_select(x, axis, idx), sgm)
 
 
 def map_soa(fn, *sgms):
@@ -121,12 +223,12 @@ def log_evaluate_many_soa(sgm: SGM, points, radius=None):
     return torch.clamp(out, min=DEAD)
 
 
-def weights(sgm: SGM):
+def weights(sgm):
     w = torch.exp(sgm.logw)
     return torch.where(sgm.logw > ALIVE_THRESHOLD, w, torch.zeros_like(w))
 
 
-def expected_size(sgm: SGM):
+def expected_size(sgm):
     """Sum of weights (Map.cs:61-71)."""
     return torch.sum(weights(sgm), dim=-1)
 
@@ -156,3 +258,51 @@ def best_map_indices(logw, cap=None, max_multiplicity=4):
     ar = torch.arange(cap, device=logw.device)
     valid = ar < torch.clamp(n, max=cap)[..., None]
     return idx, valid
+
+
+def prune_merge(gm: GM, max_quantity, min_weight, merge_threshold, rounds=8):
+    """Prune + merge (PHDNavigator.cs:913-948): sort by weight descending,
+    cut at `max_quantity` / the first weight below `min_weight`, then merge
+    later components greedily into the heaviest earlier component within
+    `merge_threshold` Mahalanobis distance (in the leader's metric).
+
+    Unbatched over particles. Returns a GM with capacity `max_quantity`."""
+    k_out = max_quantity
+    logw, order = topk_stable(gm.logw, k_out)
+    mean = gm.mean[order]
+    cov = gm.cov[order]
+    live = (logw > ALIVE_THRESHOLD) & (logw >= torch.log(torch.as_tensor(min_weight, dtype=logw.dtype)))
+
+    cov_inv = gaussian.inv(cov)  # [K, D, D], the leader metric
+    diff = mean[None, :, :] - mean[:, None, :]  # [i leader, k candidate, D]
+    m2 = torch.einsum("ikd,ide,ike->ik", diff, cov_inv, diff)
+    close = m2 < merge_threshold * merge_threshold
+
+    idx = torch.arange(k_out, device=logw.device)
+    # is_leader[k] = live[k] and no earlier leader i < k with close(i, k):
+    # a fixed-round synchronous fixed point of the sequential greedy
+    lower = (idx[:, None] < idx[None, :]) & close & live[None, :] & live[:, None]
+    is_leader = live
+    for _ in range(rounds):
+        is_leader = live & ~torch.any(lower & is_leader[:, None], dim=0)
+    eligible = lower & is_leader[:, None]
+    has = torch.any(eligible, dim=0)
+    leader = torch.where(has, torch.argmax(eligible.to(torch.uint8), dim=0), idx)
+
+    assign = (leader[None, :] == idx[:, None]) & live[None, :]
+    w = torch.where(live, torch.exp(logw), torch.zeros_like(logw))
+    cw = assign * w[None, :]
+    wsum = torch.sum(cw, dim=1)
+    safe = torch.clamp(wsum, min=1e-30)
+    m = torch.einsum("ik,kd->id", cw, mean) / safe[:, None]
+    second = cov + mean[:, :, None] * mean[:, None, :]
+    p = torch.einsum("ik,kde->ide", cw, second) / safe[:, None, None]
+    p = p - m[:, :, None] * m[:, None, :]
+
+    out_alive = is_leader & (wsum > 0)
+    eye = torch.eye(gm.dim, dtype=p.dtype, device=p.device)
+    return GM(
+        torch.where(out_alive[:, None], m, torch.zeros_like(m)),
+        torch.where(out_alive[:, None, None], p, eye),
+        torch.where(out_alive, torch.log(safe), torch.full_like(logw, DEAD)),
+    )

@@ -1,6 +1,6 @@
-"""World descriptor and command-file parsing: the port's own copy of
-monorfs_tpu.io.world's readers (Util.cs:232-264, SimulatedVehicle.cs:346-385,
-FileParser.cs:263-274)."""
+"""World descriptor parsing and serialization and command-file parsing: the
+port's own copy of monorfs_tpu.io.world (Util.cs:232-264,
+SimulatedVehicle.cs:346-385, Vehicle.cs:503-522, FileParser.cs:263-274)."""
 
 import dataclasses
 from typing import List, Optional
@@ -46,6 +46,20 @@ class World:
     def from_file(cls, filename) -> "World":
         with open(filename) as f:
             return cls.parse(f.read())
+
+    def serialize(self) -> str:
+        out = "pose\n\t" + " ".join(_g6(v) for v in self.pose) + "\n"
+        if self.measurer_params is not None:
+            out += "params\n\t" + " ".join(_g6(v) for v in self.measurer_params) + "\n"
+        out += "landmarks\n" + "".join(
+            "\t" + " ".join(_g6(v) for v in lm) + "\n" for lm in self.landmarks
+        )
+        return out
+
+
+def _g6(v):
+    """C#'s "g6" float format."""
+    return f"{float(v):.6g}"
 
 
 def parse_commands(text: str) -> List[np.ndarray]:

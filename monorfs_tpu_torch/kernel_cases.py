@@ -13,42 +13,56 @@ from .models import PRM3D
 NEG = np.float32(-1.0e30)
 
 
-def fused_state(seed, p, k0, m, n_lm, merge_ties=False):
+def fused_state(seed, p, k0, m, n_lm, merge_ties=False, model="PRM3D"):
     """A warm random filter state: landmark-like components plus noise, one
     pose per particle, and measurements of the landmarks with one clutter
-    return (the construction of tests/test_fused_pallas.py).
+    return (the construction of tests/test_fused_pallas.py). model names the
+    family: PRM3D (camera poses [P, 7], landmarks in the frustum, z [M, 3])
+    or Linear2D / Linear1D (poses [P, D] near the origin, landmarks in the
+    sensor's box with the padded coordinates zero, z [M, D]).
 
     merge_ties: every landmark sits in two slots with the same mean, and all
     live weights are equal, so the cut, the gate_top selection and the
     merge's leader order meet exactly equal weights (needs 2 n_lm <= k0).
 
-    Returns (pose [P, 7], leaves: 10 arrays [P, K0] in SGM order,
-    z [M, 3], z_mask [M] bool), float64."""
+    Returns (pose [P, S], leaves: 10 arrays [P, K0] in SGM order,
+    z [M, D], z_mask [M] bool), float64."""
     rng = np.random.default_rng(seed)
-    lm = rng.uniform(-0.8, 0.8, (n_lm, 3))
-    lm[:, 2] = rng.uniform(0.4, 1.6, n_lm)
+    d = {"PRM3D": 3, "Linear2D": 2, "Linear1D": 1}[model]
+    if model == "PRM3D":
+        lm = rng.uniform(-0.8, 0.8, (n_lm, 3))
+        lm[:, 2] = rng.uniform(0.4, 1.6, n_lm)
+    else:
+        lm = np.zeros((n_lm, 3))
+        lm[:, :d] = rng.uniform(-1.6, 1.6, (n_lm, d))
+    spread = np.array([0.03] * d + [0.03 if model == "PRM3D" else 0.0] * (3 - d))
     mean = np.zeros((p, k0, 3))
     logw = np.full((p, k0), DEAD)
     for i in range(p):
         if merge_ties:
             idx = rng.permutation(k0)[:2 * n_lm]
-            mu = lm + rng.normal(0, 0.03, lm.shape)
+            mu = lm + rng.normal(0, 1.0, lm.shape) * spread
             mean[i, idx] = np.concatenate([mu, mu])
             logw[i, idx] = -0.25
         else:
             idx = rng.permutation(k0)[:n_lm]
-            mean[i, idx] = lm + rng.normal(0, 0.03, lm.shape)
+            mean[i, idx] = lm + rng.normal(0, 1.0, lm.shape) * spread
             logw[i, idx] = rng.uniform(-1.2, 0.4, n_lm)
     cov = np.full((p, k0), 0.02)
     zero = np.zeros((p, k0))
     leaves = [mean[..., 0], mean[..., 1], mean[..., 2], cov, zero, zero, cov, zero, cov, logw]
-    pose = np.tile(np.array([0, 0, 0, 1, 0, 0, 0.0]), (p, 1))
-    pose[:, :3] += rng.normal(0, 0.02, (p, 3))
-    z = np.zeros((m, 3))
+    z = np.zeros((m, d))
     n_live = min(n_lm, m - 2)
-    zs = PRM3D.measure(PRM3D.params, torch.tensor(pose[0]), torch.tensor(lm)).numpy()
-    z[:n_live] = zs[:n_live] + rng.normal(0, 1.0, (n_live, 3)) * np.array([2.0, 2.0, 0.01])
-    z[n_live] = [5.0, -10.0, 1.2]  # clutter
+    if model == "PRM3D":
+        pose = np.tile(np.array([0, 0, 0, 1, 0, 0, 0.0]), (p, 1))
+        pose[:, :3] += rng.normal(0, 0.02, (p, 3))
+        zs = PRM3D.measure(PRM3D.params, torch.tensor(pose[0]), torch.tensor(lm)).numpy()
+        z[:n_live] = zs[:n_live] + rng.normal(0, 1.0, (n_live, 3)) * np.array([2.0, 2.0, 0.01])
+        z[n_live] = [5.0, -10.0, 1.2]  # clutter
+    else:
+        pose = rng.normal(0, 0.02, (p, d))
+        z[:n_live] = lm[:n_live, :d] - pose[0] + rng.normal(0, 0.02, (n_live, d))
+        z[n_live] = [1.7, -1.9][:d]  # clutter
     return pose, leaves, z, np.arange(m) < n_live + 1
 
 

@@ -36,9 +36,13 @@ class Params:
     def film_bottom(self):
         return self.film_top + self.film_height
 
+    def to_linear(self):
+        """Descriptor layout (PRM3DMeasurer.cs:92-96)."""
+        return [self.focal, self.range_min, self.range_max, self.film_left,
+                self.film_top, self.film_width, self.film_height]
+
     @staticmethod
     def from_linear(vals):
-        """Descriptor layout (PRM3DMeasurer.cs:92-96)."""
         f, rmin, rmax, x, y, w, h = [float(v) for v in vals]
         return Params(f, x, y, w, h, rmin, rmax)
 
@@ -54,6 +58,30 @@ def measure(p: Params, pose, landmark):
     return torch.stack(
         [p.focal * local[..., 0] / lz, p.focal * local[..., 1] / lz, rng], dim=-1
     )
+
+
+def jac_landmark(p: Params, pose, landmark):
+    """dh/dm = J_proj C(q)^T (PRM3DMeasurer.cs:157-177) -> [..., 3, 3]."""
+    q = pose3d.orientation(pose)
+    local = quat.rotate(quat.conj(q), landmark - pose3d.location(pose))
+    lx, ly, lz = local[..., 0], local[..., 1], local[..., 2]
+    one = torch.ones_like(lz)
+    mag = torch.where(lz > 0, one, -one) * torch.sqrt(lx * lx + ly * ly + lz * lz)
+    f, zero = p.focal, torch.zeros_like(lz)
+    jproj = torch.stack([
+        torch.stack([f / lz, zero, -f * lx / (lz * lz)], dim=-1),
+        torch.stack([zero, f / lz, -f * ly / (lz * lz)], dim=-1),
+        torch.stack([lx / mag, ly / mag, lz / mag], dim=-1),
+    ], dim=-2)
+    return jproj @ quat.to_matrix(quat.conj(q))
+
+
+def to_map(p: Params, pose, z):
+    """Back-projection into 3D space (PRM3DMeasurer.cs:299-312)."""
+    px, py, rng = z[..., 0], z[..., 1], z[..., 2]
+    alpha = rng / torch.sqrt(p.focal * p.focal + px * px + py * py)
+    diff = torch.stack([alpha * px, alpha * py, alpha * p.focal], dim=-1)
+    return pose3d.location(pose) + quat.rotate(pose3d.orientation(pose), diff)
 
 
 def _fuzzy(p: Params, px, py, rng, ramp):
@@ -183,6 +211,8 @@ MODEL = Model(
     meas_dim=3,
     params=Params(),
     measure=measure,
+    jac_landmark=jac_landmark,
+    to_map=to_map,
     fuzzy_visible=fuzzy_visible,
     visible=visible,
     random_measure=random_measure,

@@ -1,7 +1,9 @@
-"""Where a frame's time goes on the GPU, at the bench configuration.
+"""Where a frame's time goes on the GPU, at the bench configuration or on
+the command-line path.
 
     python -m monorfs_tpu_torch.profile_step [--frames 50] [--trace PATH]
     python -m monorfs_tpu_torch.profile_step --sync-check [--frames 10]
+    python -m monorfs_tpu_torch.profile_step --cli 3d|2d|2dloop|1d [--frames 50]
 
 Runs one warm-up chunk, then `--frames` frames under torch.profiler (CPU and
 CUDA activity) and prints one JSON object: host wall time per frame, device
@@ -11,6 +13,11 @@ device time of the work they launched, per frame, the port's hand-written
 kernels' device time and launches per frame, the device events with the
 most time, and device events per frame. --trace also writes a Chrome
 trace.
+
+--cli profiles the Simulation the command line builds for that asset world
+(200 particles, float32, the default PHDConfig: K=600, beam 200 x 8) twice,
+with and without the per-frame history (`_record`, which reads the best map
+and every pose to the host), and prints both objects.
 
 --sync-check instead runs the frames under
 torch.cuda.set_sync_debug_mode("warn") and prints every call that made the
@@ -24,14 +31,20 @@ import sys
 import time
 import warnings
 
+import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from .bench import BENCH_CONFIG, ROOT
 from .bench_core import CHUNK, draw_chunk, run_frames, setup
+from .config import Config
+from .io import World, parse_commands
+from .sim.simulation import Simulation
 
-STAGES = ("vehicle", "phd.predict", "phd.fused_stage", "phd.weight_inputs",
+CLI_WORLDS = {"3d": ("sim3d.world", "mov3d.in"), "2d": ("linear2d.world", "mov2d.in"),
+              "2dloop": ("linear2dloop.world", "mov2dloop.in"), "1d": ("linear1d.world", "mov1d.in")}
+STAGES = ("vehicle", "record", "phd.predict", "phd.fused_stage", "phd.weight_inputs",
           "phd.beam_scan", "phd.normalise_resample")
 KERNELS = {"beam_scan": "beam_scan", "fused_stage": "fused_stage_kernel"}  # name: substring
 PACKAGE = pathlib.Path(__file__).resolve().parent
@@ -81,29 +94,8 @@ def in_package(filename):
     return pathlib.Path(filename).resolve().is_relative_to(PACKAGE)
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--frames", type=int, default=50)
-    ap.add_argument("--trace", type=pathlib.Path, default=None)
-    ap.add_argument("--sync-check", action="store_true")
-    args = ap.parse_args(argv)
-    n = args.frames
-
-    if args.sync_check:
-        syncs = host_syncs(n)
-        ours = [s for s in syncs if in_package(s[0])]
-        print(json.dumps({"frames": n, "syncs": syncs, "from_package": len(ours)}))
-        sys.exit(1 if ours else 0)
-
-    runner, carry, cmds, draws = warm(n)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run_frames(runner, carry, cmds, draws)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    if args.trace:
-        prof.export_chrome_trace(str(args.trace))
-
+def summarise(prof, wall, n):
+    """The profile of n frames that took `wall` seconds, as a dict."""
     events = prof.events()
     on_device = [e for e in events if e.device_type == DeviceType.CUDA and e.name not in STAGES]
     device_us = sum(e.time_range.elapsed_us() for e in on_device)
@@ -124,7 +116,7 @@ def main(argv=None):
         mine = [e for e in on_device if part in e.name]
         kernels[name] = {"device_ms_per_frame": sum(e.time_range.elapsed_us() for e in mine) / 1e3 / n,
                          "launches_per_frame": len(mine) / n}
-    print(json.dumps({
+    return {
         "device": torch.cuda.get_device_name(0),
         "frames": n,
         "wall_ms_per_frame": wall * 1e3 / n,
@@ -137,7 +129,66 @@ def main(argv=None):
             {"name": k, "device_ms_per_frame": us / 1e3 / n, "calls_per_frame": c / n}
             for k, (us, c) in top
         ],
-    }))
+    }
+
+
+def profile_cli(which, n, collect_history, device="cuda"):
+    """Profile n frames of the command line's Simulation on an asset world
+    after CHUNK warm-up frames."""
+    world_file, command_file = CLI_WORLDS[which]
+    world = World.from_file(ROOT / "assets" / world_file)
+    commands = parse_commands((ROOT / "assets" / command_file).read_text())
+    commands = (commands * (1 + (CHUNK + n) // len(commands)))[: CHUNK + n]
+    cfg = Config()
+    cfg.set_model_defaults({1: "Linear1D", 2: "Linear2D", 7: "PRM3D"}[len(world.pose)])
+    sim = Simulation(cfg, world, commands, particles=200, dtype=np.float32,
+                     collect_history=collect_history, device=device)
+    for cmd in commands[:CHUNK]:
+        sim.step(cmd)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for cmd in commands[CHUNK:]:
+            sim.step(cmd)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out = summarise(prof, wall, n)
+    out.update(path="cli", world=world_file, collect_history=collect_history,
+               shape=dict(P=200, K0=sim.phd_cfg.max_components, M=sim.max_meas,
+                          B=sim.phd_cfg.beam_width, C=sim.phd_cfg.beam_candidates))
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--frames", type=int, default=50)
+    ap.add_argument("--trace", type=pathlib.Path, default=None)
+    ap.add_argument("--sync-check", action="store_true")
+    ap.add_argument("--cli", choices=sorted(CLI_WORLDS), default=None)
+    args = ap.parse_args(argv)
+    n = args.frames
+
+    if args.cli:
+        for collect_history in (True, False):
+            print(json.dumps(profile_cli(args.cli, n, collect_history)), flush=True)
+        return
+
+    if args.sync_check:
+        syncs = host_syncs(n)
+        ours = [s for s in syncs if in_package(s[0])]
+        print(json.dumps({"frames": n, "syncs": syncs, "from_package": len(ours)}))
+        sys.exit(1 if ours else 0)
+
+    runner, carry, cmds, draws = warm(n)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_frames(runner, carry, cmds, draws)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if args.trace:
+        prof.export_chrome_trace(str(args.trace))
+
+    print(json.dumps(summarise(prof, wall, n)))
 
 
 if __name__ == "__main__":

@@ -18,7 +18,11 @@ follow the kernel semantics of fused_pallas.py:21-41, not the XLA path's:
     eligible leader (lowest index on ties) and pools moments centred at the
     leader's mean.
 
-Only PRM3D (meas_dim 3) is ported; other models raise."""
+The kernel and the plain version take the three model families (PRM3D,
+Linear2D, Linear1D: measurement dimension D = 3, 2, 1; pose width 7, 2, 1).
+Where a block's shared memory cannot hold the whole layout (K0 = 600), the
+[M, K0+M] pair table lives in a per-particle workspace in device memory,
+allocated once per shape and device."""
 
 import ctypes
 import functools
@@ -36,7 +40,7 @@ _PAIRS = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
 
 
 def fused_stage_plain(model, cfg, params, pose, maps: SGM, z, z_mask):
-    """pose [P, 7]; maps leaves [P, K0]; z [M, 3]; z_mask [M] bool.
+    """pose [P, S]; maps leaves [P, K0]; z [M, D]; z_mask [M] bool.
     Returns (predicted SGM [P, K0+M], corrected SGM [P, K0])."""
     p = pose.shape[0]
     k0 = maps.capacity
@@ -48,11 +52,11 @@ def fused_stage_plain(model, cfg, params, pose, maps: SGM, z, z_mask):
     dead = torch.tensor(DEAD, dtype=dt, device=dev)
     zero = torch.zeros((), dtype=dt, device=dev)
 
-    zl = [z[:, i][None, :] for i in range(3)]  # 3 x [1, M]
+    zl = [z[:, i][None, :] for i in range(model.meas_dim)]  # D x [1, M]
     z_live = z_mask[None, :]
 
     # ---- births (PredictConditional, PHDNavigator.cs:793-819) --------------
-    cand = model.to_map_soa(mp, pose, zl)  # 3 x [P, M]
+    cand = [c.expand(p, m) for c in model.to_map_soa(mp, pose, zl)]  # 3 x [P, M]
     mean0, cov0, logw0 = maps.mean_list(), maps.cov6(), maps.logw
     cov0m = smallmat.sym_to_mat(cov0)
     det0 = smallmat.det(cov0m)
@@ -81,11 +85,11 @@ def fused_stage_plain(model, cfg, params, pose, maps: SGM, z, z_mask):
     # ---- EKF precompute (CorrectConditional, :857-870) ---------------------
     alive = logw > ALIVE_THRESHOLD
     cov = smallmat.sym_to_mat(cov6)
-    h = model.measure_soa(mp, pose, mean)  # 3 x [P, KP]
+    h = model.measure_soa(mp, pose, mean)  # D x [P, KP]
     pd_k = torch.where(alive, model.fuzzy_visible_soa(mp, h, params.visibility_ramp) * params.pd, zero)
     pd_k = torch.clamp(pd_k, 0.0, 1.0 - 1e-7)
     miss_logw = torch.where(alive, logw + torch.log1p(-pd_k), dead)
-    hj = model.jac_landmark_soa(mp, pose, mean)
+    hj = model.jac_landmark_soa(mp, pose, mean)  # D x 3
     pht = smallmat.matmul(cov, smallmat.transpose(hj))
     s = smallmat.add(smallmat.matmul(hj, pht), smallmat.from_tensor(params.meas_cov))
     det_s = smallmat.det(s)
@@ -232,51 +236,86 @@ def fused_stage_plain(model, cfg, params, pose, maps: SGM, z, z_mask):
 
 # ---- CUDA kernel wrapper -----------------------------------------------------
 
-def pack_params(params):
-    """PHDParams -> flat [28] f32 (layout read by csrc/fused_stage.cu)."""
+def pack_params(model, params):
+    """PHDParams -> flat [16 + D + D*D] f32 (layout read by
+    csrc/fused_stage.cu): 7 scalars, ramp [D], meas_cov [D, D], birth_cov."""
+    d = model.meas_dim
     parts = [
         params.pd, params.clutter_density, params.birth_weight, params.min_weight,
         params.merge_threshold, params.exploration_threshold, params.density_radius,
-        params.visibility_ramp, params.meas_cov, params.birth_cov,
+        params.visibility_ramp[:d], params.meas_cov, params.birth_cov,
     ]
     return torch.cat([x.reshape(-1).to(torch.float32) for x in parts])
 
 
+def model_params(model):
+    """The model's own parameters as the 8 floats the kernel takes by value."""
+    mp = model.params
+    if model.name == "PRM3D":
+        return (mp.focal, mp.focal * mp.focal, mp.film_left, mp.film_right,
+                mp.film_top, mp.film_bottom, mp.range_min, mp.range_max)
+    if model.name in ("Linear2D", "Linear1D"):
+        return (mp.range,) + (0.0,) * 7
+    raise NotImplementedError(f"the fused kernel has no instantiation for {model.name}")
+
+
 @functools.cache
-def smem_bytes(k0, m):
-    """Shared memory one block of the kernel asks for at this shape."""
-    fn = _build.function("fused_stage_smem_bytes", [ctypes.c_int] * 2, ctypes.c_size_t)
-    return fn(k0, m)
+def smem_bytes(k0, m, pairs_global=False):
+    """Shared memory one block of the kernel asks for at this shape, with the
+    pair table in shared memory or in the device-memory workspace."""
+    fn = _build.function("fused_stage_smem_bytes", [ctypes.c_int] * 3, ctypes.c_size_t)
+    return fn(k0, m, int(pairs_global))
+
+
+@functools.cache
+def pairs_global(k0, m):
+    """Whether the pair table goes to the device-memory workspace at this
+    shape; raises when the layout fits in neither form."""
+    if smem_bytes(k0, m) <= _build.SMEM_LIMIT:
+        return False
+    if smem_bytes(k0, m, True) <= _build.SMEM_LIMIT:
+        return True
+    raise ValueError(f"K0={k0}, M={m} needs more shared memory than a block has")
+
+
+@functools.cache
+def _workspace(p, k0, m, device):
+    """The pair-table workspace [P, M, K0+M] f32 of a shape, allocated once
+    per device; launches on one stream run in order, so they share it."""
+    return torch.empty((p, m, k0 + m), dtype=torch.float32, device=device)
 
 
 @functools.cache
 def _launcher():
     return _build.function(
         "fused_stage_launch",
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float] * 8 + [ctypes.c_void_p] * 2,
+        [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float] * 8
+        + [ctypes.c_void_p] * 2,
     )
 
 
 def fused_stage(model, cfg, params, pose, maps: SGM, z, z_mask, packed=None, phase_clock=None):
     """Births + correct + prune for all particles; see the module note.
-    packed: pack_params(params) on the device, when the caller keeps it
-    across calls. phase_clock: an int64 [P, len(PHASES) + 1] CUDA tensor that
-    receives each block's clock64() at entry and after each phase of PHASES
-    (a measurement; it adds a barrier per phase). Returns (predicted SGM
-    [P, K0+M], corrected SGM [P, K0])."""
+    packed: pack_params(model, params) on the device, when the caller keeps
+    it across calls. phase_clock: an int64 [P, len(PHASES) + 1] CUDA tensor
+    that receives each block's clock64() at entry and after each phase of
+    PHASES (a measurement; it adds a barrier per phase). Returns (predicted
+    SGM [P, K0+M], corrected SGM [P, K0]). On CUDA tensors the kernel is
+    launched or an error is raised; the plain version runs for CPU tensors
+    only."""
     if pose.device.type == "cpu":
         return fused_stage_plain(model, cfg, params, pose, maps, z, z_mask)
     if pose.device.type != "cuda":
         raise ValueError(f"unsupported device {pose.device}")
-    if model.name != "PRM3D" or model.meas_dim != 3:
-        raise NotImplementedError(f"the fused kernel takes PRM3D only, not {model.name}")
+    mvals = model_params(model)
+    d, s = model.meas_dim, model.pose.state_dim
     p = pose.shape[0]
     k0 = maps.capacity
     m = z.shape[0]
     if k0 != cfg.max_components:
         raise ValueError(f"map capacity {k0} != max_components {cfg.max_components}")
     dev = pose.device
-    checks = [("pose", pose, torch.float32, (p, 7)), ("z", z, torch.float32, (m, 3)),
+    checks = [("pose", pose, torch.float32, (p, s)), ("z", z, torch.float32, (m, d)),
               ("z_mask", z_mask, torch.bool, (m,))]
     checks += [(f"maps.{n}", leaf, torch.float32, (p, k0)) for n, leaf in zip(SGM._fields, maps)]
     for name, t, dt, shape in checks:
@@ -286,8 +325,7 @@ def fused_stage(model, cfg, params, pose, maps: SGM, z, z_mask, packed=None, pha
             )
     if cfg.gate_top < 1 or cfg.merge_rounds < 0:
         raise ValueError("gate_top must be positive and merge_rounds non-negative")
-    if smem_bytes(k0, m) > _build.SMEM_LIMIT:
-        raise ValueError(f"K0={k0}, M={m} needs more shared memory than a block has")
+    work = _workspace(p, k0, m, dev).data_ptr() if pairs_global(k0, m) else 0
     clk = 0
     if phase_clock is not None:
         shape = (p, len(PHASES) + 1)
@@ -301,21 +339,17 @@ def fused_stage(model, cfg, params, pose, maps: SGM, z, z_mask, packed=None, pha
     maps_in = torch.stack(list(maps))  # [10, P, K0]
     z_c = z.contiguous()
     zm = z_mask.to(torch.int32).contiguous()
-    prm = pack_params(params).to(dev) if packed is None else packed
-    if prm.device != dev or prm.dtype != torch.float32 or prm.shape != (28,):
-        raise ValueError(f"packed params: expected float32 (28,) on {dev}")
+    prm = pack_params(model, params).to(dev) if packed is None else packed
+    if prm.device != dev or prm.dtype != torch.float32 or prm.shape != (16 + d + d * d,):
+        raise ValueError(f"packed params: expected float32 ({16 + d + d * d},) on {dev}")
     pred = torch.empty((10, p, kp), dtype=torch.float32, device=dev)
     cor = torch.empty((10, p, k0), dtype=torch.float32, device=dev)
-    cp = model.params
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = _launcher()(
-            prm.data_ptr(), pose_c.data_ptr(), maps_in.data_ptr(), z_c.data_ptr(),
-            zm.data_ptr(), pred.data_ptr(), cor.data_ptr(),
-            p, k0, m, cfg.gate_top, cfg.merge_rounds,
-            cp.focal, cp.focal * cp.focal, cp.film_left, cp.film_right,
-            cp.film_top, cp.film_bottom, cp.range_min, cp.range_max,
-            clk, stream,
+            d, prm.data_ptr(), pose_c.data_ptr(), maps_in.data_ptr(), z_c.data_ptr(),
+            zm.data_ptr(), pred.data_ptr(), cor.data_ptr(), work,
+            p, k0, m, cfg.gate_top, cfg.merge_rounds, *mvals, clk, stream,
         )
     _build.check(err, "fused_stage_launch")
     fused_stage.launches += 1

@@ -1,22 +1,29 @@
 """Rao-Blackwellized PHD SLAM step (PHDNavigator.cs:48-983): the torch twin
-of the SoA step of monorfs_tpu.slam.phd.
+of monorfs_tpu.slam.phd, generic over the model family (pose width 1, 2 or
+7, measurement dimension 1-3).
 
-State is fixed-shape tensors: poses [P, 7], log-weights [P] and per-particle
+State is fixed-shape tensors: poses [P, S], log-weights [P] and per-particle
 SoA mixture maps [P, K] with dead-slot masking. One step runs, as
-make_slam_step wires it on the TPU (phd.py:574-635):
+make_slam_step wires it in the JAX package (phd.py:574-635):
 
-  predict   every particle moves by the odometry plus motion noise;
+  predict   every particle moves by the odometry plus motion noise (mapping
+            only: snaps to the true pose);
   compact   measurements are gathered live-first (stable) into meas_compact
             slots, shared by all particles;
-  fused     births + EKF correct + prune/merge (slam/fused_kernel.py);
+  correct   births + EKF correct + prune/merge: the fused stage with the
+            kernel's semantics (slam/fused_kernel.py) for float32, or the
+            XLA path's semantics (_births_soa + _correct_prune_soa: one
+            global top-K cut, no gate_top cap, survivors in weight order)
+            for float64;
   weight    the MAP-estimate weight inputs per particle, then the
             association beam over all particles (slam/beam_kernel.py);
   normalise logsumexp with a NaN guard, then the ESS test and systematic
             resampling, selected with torch.where so a frame needs no host
             sync.
 
-Randomness is injected: the step takes the motion normals [P, 6] and the
-resample uniform [] as tensors.
+Randomness is injected: the step takes the motion normals [P, T] and the
+resample uniform [] as tensors. The AoS _births / _correct at the end are
+the executable specification the SoA paths are tested against.
 """
 
 import dataclasses
@@ -27,9 +34,9 @@ import torch
 from torch.profiler import record_function
 
 from .. import resolve_device
-from ..gm import mixture, smallmat
+from ..gm import gaussian, mixture, smallmat
 from ..gm.gaussian import sqrt_cov
-from ..gm.mixture import SGM
+from ..gm.mixture import ALIVE_THRESHOLD, DEAD, GM, SGM
 from . import association, beam_kernel, fused_kernel
 
 # log(1e-300): the reference's float64 density floor, pinned in log space so
@@ -108,12 +115,177 @@ def init_state(model, cfg: PHDConfig, init_pose, dtype=torch.float32, device="cu
     )
 
 
-def predict_poses(model, params: PHDParams, state: PHDState, odometry, normals):
+def predict_poses(model, params: PHDParams, state: PHDState, odometry, normals,
+                  slam=True, true_pose=None):
     """Motion update (PHDNavigator.cs:295-314): each particle moves by the
-    odometry plus dt * L n, L the motion factor, n ~ normals [P, T]."""
+    odometry plus dt * L n, L the motion factor, n ~ normals [P, T]. In
+    mapping-only mode every particle snaps to the reference pose."""
+    if not slam:
+        return state._replace(pose=true_pose.expand(state.pose.shape).clone())
     moved = model.pose.add_odometry(state.pose, odometry[None, :])
     noise = params.dt * torch.sum(params.motion_sqrt[None, :, :] * normals[:, None, :], dim=-1)
     return state._replace(pose=model.pose.add_odometry(moved, noise))
+
+
+# =============================================================================
+# SoA path with the XLA step's semantics (float64 runs, and the tests' oracle
+# for the fused stage's kernel semantics)
+# =============================================================================
+
+def _births_soa(model, params, pose, maps: SGM, zl, z_mask):
+    """Birth components at unexplored back-projections (PredictConditional,
+    PHDNavigator.cs:793-819 + Explored :956-959), for all particles.
+
+    pose [P, S]; maps leaves [P, K]; zl: D-list of [M]. Returns SGM [P, M]."""
+    cand = model.to_map_soa(model.params, pose, [zi[None, :] for zi in zl])  # 3 x [P, M]
+    density = mixture.evaluate_many_soa(maps, cand, radius=3.0 * params.density_radius)
+    unexplored = z_mask[None, :] & (density < params.exploration_threshold)
+    logw = torch.where(
+        unexplored, torch.log(params.birth_weight), torch.full_like(density, DEAD)
+    )
+    return mixture.sgm_make(cand, smallmat.from_tensor(params.birth_cov), logw)
+
+
+def _correct_prune_soa(model, cfg, params, pose, pred: SGM, zl, z_mask):
+    """Measurement update + prune + merge on SoA state for all particles
+    (CorrectConditional + PruneModel, PHDNavigator.cs:829-948), with the
+    semantics of the JAX package's XLA path:
+
+    1. per-component EKF precompute (h, S, gain, (I-KH)P), unrolled;
+    2. dense scalar association scores over all gated (z, component) pairs
+       with the exact per-measurement normaliser (:884-899);
+    3. one global top-K cut over {misdetections} u {pair updates}, ties to
+       the lower index (:921-929); survivors stay in weight order;
+    4. the EKF mean / covariance update for survivors only;
+    5. greedy weight-ordered Mahalanobis merge (:930-948).
+
+    pose [P, S]; pred leaves [P, K']; zl: D-list of [M]. Returns SGM
+    [P, max_components]."""
+    p, kp = pred.logw.shape
+    k_out = cfg.max_components
+    m = zl[0].shape[0]
+    mp = model.params
+    dt, dev = pred.logw.dtype, pred.logw.device
+    zero = torch.zeros((), dtype=dt, device=dev)
+    dead = torch.full((), DEAD, dtype=dt, device=dev)
+    alive = pred.logw > ALIVE_THRESHOLD
+
+    mean = pred.mean_list()  # 3 x [P, K']
+    cov = pred.cov_mat()
+
+    # --- per-component EKF precompute (:857-870) -----------------------------
+    h = model.measure_soa(mp, pose, mean)  # D x [P, K']
+    nd = len(h)
+    pd_k = torch.where(
+        alive, model.fuzzy_visible_soa(mp, h, params.visibility_ramp) * params.pd, zero
+    )
+    pd_k = torch.clamp(pd_k, 0.0, 1.0 - 1e-7)
+    miss_logw = torch.where(alive, pred.logw + torch.log1p(-pd_k), dead)
+
+    hj = model.jac_landmark_soa(mp, pose, mean)  # D x 3 of [P, K']
+    hj = [[e.expand(p, kp).to(dt) for e in row] for row in hj]
+    pht = smallmat.matmul(cov, smallmat.transpose(hj))  # 3 x D
+    s = smallmat.add(smallmat.matmul(hj, pht), smallmat.from_tensor(params.meas_cov))
+    det_s = smallmat.det(s)
+    s_inv = smallmat.inv(s, det_s)
+    s_logmult = smallmat.log_multiplier(s, det_s)
+    gain = smallmat.matmul(pht, s_inv)  # 3 x D
+    ikh = smallmat.sub(smallmat.identity_like(3, pred.logw), smallmat.matmul(gain, hj))
+    cov_upd = smallmat.mat_to_sym(smallmat.symmetrize(smallmat.matmul(ikh, cov)))
+    cov_orig = smallmat.mat_to_sym(cov)
+
+    # --- dense pair scores [P, M, K'] (:881-903) -----------------------------
+    backproj = model.to_map_soa(mp, pose, [zi[None, :] for zi in zl])  # 3 x [P, M]
+    diffp = [b[:, :, None] - mi[:, None, :] for b, mi in zip(backproj, mean)]
+    dist2 = sum(dd * dd for dd in diffp)
+    r2 = params.density_radius * params.density_radius
+    in_gate = (dist2 <= r2) & alive[:, None, :] & z_mask[None, :, None]
+    innov = [zi[None, :, None] - hi[:, None, :] for zi, hi in zip(zl, h)]
+    q_log = s_logmult[:, None, :] - 0.5 * smallmat.quadform(
+        innov, [[e[:, None, :] for e in row] for row in s_inv]
+    )
+    # degenerate components can give non-finite scores: gated out
+    q_log = torch.where(torch.isfinite(q_log), q_log, dead)
+    log_pd_k = torch.log(torch.clamp(pd_k, min=1e-30))
+    log_num = torch.where(in_gate, log_pd_k[:, None, :] + pred.logw[:, None, :] + q_log, dead)
+    wsum = torch.sum(torch.where(in_gate, torch.exp(log_num), zero), dim=-1)  # [P, M]
+    upd_logw = log_num - torch.log(params.clutter_density + wsum)[:, :, None]
+    upd_logw = torch.where(in_gate, upd_logw, dead)
+
+    # --- global weight-sorted cut (PruneModel :921-929) ----------------------
+    all_logw = torch.cat([miss_logw, upd_logw.reshape(p, m * kp)], dim=-1)
+    top_logw, top_idx = mixture.topk_stable(all_logw, k_out)
+    is_miss = top_idx < kp
+    pair = torch.clamp(top_idx - kp, min=0)
+    comp = torch.where(is_miss, top_idx, pair % kp)
+    midx = torch.where(is_miss, torch.zeros_like(pair), torch.div(pair, kp, rounding_mode="floor"))
+
+    # --- survivor channels: exact gathers by index ----------------------------
+    chans = list(h) + [e for row in gain for e in row] + list(mean) + list(cov_orig) + list(cov_upd)
+    feat = torch.stack([c.expand(p, kp) for c in chans], dim=-1)  # [P, K', C]
+    feat = torch.where(torch.isfinite(feat) & alive[..., None], feat, zero)
+    gathered = torch.gather(feat, 1, comp[..., None].expand(-1, -1, feat.shape[-1]))
+    cols = [gathered[..., i] for i in range(feat.shape[-1])]
+    h_s = cols[:nd]
+    gain_s = [[cols[nd + i_ * nd + j_] for j_ in range(nd)] for i_ in range(3)]
+    base = nd + 3 * nd
+    mean_g = cols[base : base + 3]
+    cov_g = cols[base + 3 : base + 9]
+    covu_g = cols[base + 9 : base + 15]
+    z_s = torch.stack(zl, dim=-1)[midx]  # [P, K_out, D]
+
+    # --- survivor mean / covariance update (:893-898) -------------------------
+    innov_s = [z_s[..., i] - h_s[i] for i in range(nd)]
+    delta = smallmat.matvec(gain_s, innov_s)
+    mean_s = [mg + torch.where(is_miss, zero, di) for mg, di in zip(mean_g, delta)]
+    cov_s = [torch.where(is_miss, co, cu) for co, cu in zip(cov_g, covu_g)]
+    live = (top_logw > ALIVE_THRESHOLD) & (top_logw >= torch.log(params.min_weight))
+
+    # --- greedy weight-ordered merge (:930-948) ------------------------------
+    # Survivors arrive weight-sorted; later components merge into the
+    # heaviest earlier component within merge_threshold, in the leader's metric.
+    covm = smallmat.sym_to_mat(cov_s)
+    inv_c = smallmat.inv(covm, smallmat.det(covm))
+    diff = [mi[:, None, :] - mi[:, :, None] for mi in mean_s]  # [P, i leader, k]
+    m2 = smallmat.quadform(diff, [[e[:, :, None] for e in row] for row in inv_c])
+    close = m2 < params.merge_threshold * params.merge_threshold
+    idx = torch.arange(k_out, device=dev)
+    lower = (idx[:, None] < idx[None, :]) & close & live[:, None, :] & live[:, :, None]
+    is_leader = live
+    for _ in range(cfg.merge_rounds):
+        is_leader = live & ~torch.any(lower & is_leader[:, :, None], dim=1)
+    eligible = lower & is_leader[:, :, None]
+    has = torch.any(eligible, dim=1)
+    leader = torch.where(has, torch.argmax(eligible.to(torch.uint8), dim=1), idx)
+
+    # moments pooled about each member's leader mean (Gaussian.cs:297-347)
+    assign = ((leader[:, None, :] == idx[None, :, None]) & live[:, None, :]).to(dt)
+    w = torch.where(live, torch.exp(top_logw), zero)
+    mean_feat = torch.stack(mean_s, dim=-1)  # [P, K, 3]
+    dvec = mean_feat - torch.bmm(assign.transpose(1, 2), mean_feat)
+    dv = [dvec[..., a] for a in range(3)]
+    pairs = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
+    pool = (
+        [w]
+        + [w * dv[a] for a in range(3)]
+        + [w * dv[a] * dv[b] for a, b in pairs]
+        + [w * cov_s[i] for i in range(6)]
+    )
+    pooled = torch.bmm(assign, torch.stack(pool, dim=-1))  # [P, K, 16]
+    wsum_l = pooled[..., 0]
+    safe = torch.clamp(wsum_l, min=1e-30)
+    delta_m = [pooled[..., 1 + a] / safe for a in range(3)]
+    mean_m = [mi + dm for mi, dm in zip(mean_s, delta_m)]
+    spread = [pooled[..., 4 + i] / safe - delta_m[a] * delta_m[b] for i, (a, b) in enumerate(pairs)]
+    cov_m = [pooled[..., 10 + i] / safe + spread[i] for i in range(6)]
+
+    out_alive = is_leader & (wsum_l > 0)
+    one = torch.ones((), dtype=dt, device=dev)
+    return SGM(
+        *[torch.where(out_alive, mi, zero) for mi in mean_m],
+        *[torch.where(out_alive, ci, ei) for ci, ei in zip(cov_m, (one, zero, zero, one, zero, one))],
+        torch.where(out_alive, torch.log(safe), dead),
+    )
 
 
 def live_first(z_mask, n):
@@ -216,31 +388,142 @@ def _normalise_resample(params, state, corrected, scores, rest, resample_u):
     )
 
 
-def make_slam_step(model, cfg: PHDConfig):
-    """The SLAM step: (params, state, odometry [T], z [M, D], z_mask [M],
-    motion_normals [P, T], resample_u []) -> state."""
+def make_slam_step(model, cfg: PHDConfig, slam: bool = True, kernels=None):
+    """The step: (params, state, odometry [T], z [M, D], z_mask [M],
+    motion_normals [P, T], resample_u [], true_pose [S] = None) -> state.
+
+    slam=False runs mapping-only: poses snap to `true_pose`, particle weights
+    stay and best is 0 (PHDNavigator.cs:192-208, :297-300, :334-336).
+
+    kernels chooses the births + correct + prune stage and the beam:
+      None   float32 state -> fused_kernel.fused_stage and
+             beam_kernel.beam_scan_batch (each its CUDA kernel for CUDA
+             tensors, its plain version for CPU tensors); float64 state ->
+             the XLA-semantics functions above and the plain beam, on
+             whichever device the tensors are;
+      False  the XLA-semantics functions and the plain beam for any dtype
+             (the tests' oracle);
+      True   the kernels; a float64 state raises."""
     n_words = (cfg.estimate_cap + 31) // 32
+    d = model.meas_dim
     packed = [None, None]  # the last params seen and their fused-kernel vector
 
-    def step(params, state, odometry, z, z_mask, motion_normals, resample_u):
-        if packed[0] is not params:
-            packed[:] = params, fused_kernel.pack_params(params)
+    def step(params, state, odometry, z, z_mask, motion_normals, resample_u, true_pose=None):
+        f32 = state.pose.dtype == torch.float32
+        if kernels and not f32:
+            raise ValueError("the kernels are float32 only; this state is " + str(state.pose.dtype))
+        use_kernels = f32 if kernels is None else bool(kernels)
         with record_function("phd.predict"):
-            state = predict_poses(model, params, state, odometry, motion_normals)
+            state = predict_poses(model, params, state, odometry, motion_normals, slam, true_pose)
             if cfg.meas_compact and cfg.meas_compact < cfg.max_measurements:
                 order = live_first(z_mask, cfg.meas_compact)
                 z, z_mask = z[order], z_mask[order]
         with record_function("phd.fused_stage"):
-            predicted, corrected = fused_kernel.fused_stage(
-                model, cfg, params, state.pose, state.maps, z, z_mask, packed[1]
+            if use_kernels:
+                if packed[0] is not params:
+                    packed[:] = params, fused_kernel.pack_params(model, params)
+                predicted, corrected = fused_kernel.fused_stage(
+                    model, cfg, params, state.pose, state.maps, z, z_mask, packed[1]
+                )
+            else:
+                zl = [z[:, i] for i in range(d)]
+                births = _births_soa(model, params, state.pose, state.maps, zl, z_mask)
+                predicted = mixture.concat_soa(state.maps, births)
+                corrected = _correct_prune_soa(model, cfg, params, state.pose, predicted, zl, z_mask)
+        if not slam:
+            p = state.logweight.shape[0]
+            return PHDState(
+                state.pose, state.logweight, corrected,
+                torch.zeros((), dtype=torch.int64, device=state.pose.device),
+                torch.arange(p, device=state.pose.device),
             )
         with record_function("phd.weight_inputs"):
             rest, base, od, wk, bk = weight_inputs(
                 model, cfg, params, state.pose, predicted, corrected, z, z_mask
             )
         with record_function("phd.beam_scan"):
-            scores = beam_kernel.beam_scan_batch(base, od, wk, bk, cfg.beam_width, n_words)
+            beam = beam_kernel.beam_scan_batch if use_kernels else association.beam_scan
+            scores = beam(base, od, wk, bk, cfg.beam_width, n_words)
         with record_function("phd.normalise_resample"):
             return _normalise_resample(params, state, corrected, scores, rest, resample_u)
 
     return step
+
+
+# =============================================================================
+# AoS specification path (the oracle the SoA paths are held to; one particle)
+# =============================================================================
+
+def _births(model, params, pose, maps: GM, z, z_mask):
+    """Birth components at unexplored back-projections (PredictConditional,
+    PHDNavigator.cs:793-819 + Explored :956-959). pose [S], z [M, D]."""
+    cand = model.to_map(model.params, pose[None, :], z)  # [M, 3]
+    density = mixture.evaluate_many(maps, cand, radius=3.0 * params.density_radius)
+    unexplored = z_mask & (density < params.exploration_threshold)
+    logw = torch.where(
+        unexplored, torch.log(params.birth_weight), torch.full_like(density, DEAD)
+    )
+    cov = params.birth_cov.expand(z.shape[0], 3, 3)
+    return GM(cand, cov, logw.to(maps.logw.dtype))
+
+
+def _correct(model, cfg, params, pose, predicted: GM, z, z_mask):
+    """PHD measurement update (CorrectConditional, PHDNavigator.cs:829-906):
+    dense per-component EKF precompute + per-measurement top-G gated update.
+    Returns the un-pruned corrected candidate mixture
+    [K' misdetections + M * G updates]."""
+    kp = predicted.capacity
+    d = model.meas_dim
+    dt, dev = predicted.logw.dtype, predicted.logw.device
+    zero = torch.zeros((), dtype=dt, device=dev)
+    dead = torch.full((), DEAD, dtype=dt, device=dev)
+    alive = mixture.alive(predicted)
+
+    h = model.measure(model.params, pose[None, :], predicted.mean)  # [K', D]
+    pd_k = torch.where(
+        alive, model.fuzzy_visible_fn()(model.params, h, params.visibility_ramp) * params.pd, zero
+    )
+    pd_k = torch.clamp(pd_k, 0.0, 1.0 - 1e-7)
+
+    # misdetection branch: w *= (1 - PD)
+    miss_logw = torch.where(alive, predicted.logw + torch.log1p(-pd_k), dead)
+    miss = GM(predicted.mean, predicted.cov, miss_logw)
+
+    # EKF precompute (:857-870)
+    hjac = model.jac_landmark(model.params, pose[None, :], predicted.mean).expand(kp, d, 3)
+    ph = torch.einsum("kab,kcb->kac", predicted.cov, hjac)  # P H^T [K', 3, D]
+    s = torch.einsum("kab,kbc->kac", hjac, ph) + params.meas_cov  # [K', D, D]
+    s_inv = gaussian.inv(s)
+    s_logmult = gaussian.log_multiplier(s)
+    gain = torch.einsum("kad,kde->kae", ph, s_inv)  # [K', 3, D]
+    i_kh = torch.eye(3, dtype=dt, device=dev) - torch.einsum("kad,kdb->kab", gain, hjac)
+    cov_upd = torch.einsum("kab,kbc->kac", i_kh, predicted.cov)
+
+    # gating: components near each measurement's back-projection (:881-882)
+    backproj = model.to_map(model.params, pose[None, :], z)  # [M, 3]
+    dist2 = torch.sum((backproj[:, None, :] - predicted.mean[None, :, :]) ** 2, dim=-1)
+    r2 = params.density_radius * params.density_radius
+    in_gate = (dist2 <= r2) & alive[None, :] & z_mask[:, None]
+    gate_score = torch.where(in_gate, -dist2, torch.full_like(dist2, -float("inf")))
+    _, gidx = mixture.topk_stable(gate_score, cfg.gate_top)  # [M, G]
+    gvalid = torch.gather(in_gate, 1, gidx)
+
+    # per-(measurement, gated component) update terms
+    zg = z[:, None, :]
+    h_g = h[gidx]  # [M, G, D]
+    q_log = s_logmult[gidx] - 0.5 * torch.einsum(
+        "mgd,mgde,mge->mg", zg - h_g, s_inv[gidx], zg - h_g
+    )
+    log_pd_g = torch.log(torch.clamp(pd_k[gidx], min=1e-30))
+    log_num = torch.where(gvalid, log_pd_g + predicted.logw[gidx] + q_log, dead)
+    wsum = torch.sum(torch.where(gvalid, torch.exp(log_num), zero), dim=1)  # (:884-890)
+    upd_logw = log_num - torch.log(params.clutter_density + wsum)[:, None]
+
+    mean_g = predicted.mean[gidx] + torch.einsum("mgad,mgd->mga", gain[gidx], zg - h_g)
+    mg = z.shape[0] * cfg.gate_top
+    updates = GM(
+        mean_g.reshape(mg, 3),
+        cov_upd[gidx].reshape(mg, 3, 3),
+        torch.where(gvalid, upd_logw, dead).reshape(mg),
+    )
+    return mixture.concat(miss, updates)

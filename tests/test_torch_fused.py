@@ -104,3 +104,105 @@ def test_fused_plain_matches_pallas_cases(name, fields, state):
     if name == "merge-ties":
         lw = leaves[9][0][leaves[9][0] > -0.25e30]
         assert len(np.unique(lw)) == 1 and len(lw) == 24
+
+
+def _pallas_ready(jmodel):
+    """The JAX linear models' to_map_soa broadcasts to the measurements'
+    shape [1, M], which fails inside the Pallas kernel, where the pose is
+    [bp, 1]: fused_pallas.supported() accepts the linear models, but the
+    kernel cannot be traced for them. The reference stays as it is; the
+    test hands the kernel the same function broadcasting both ways."""
+    import dataclasses
+
+    d = jmodel.meas_dim
+    if d == 3:
+        return jmodel
+
+    def to_map_soa(p, pose, z):
+        lm = [pose[..., i : i + 1] + z[i] for i in range(d)]
+        return lm + [jnp.zeros_like(lm[0])] * (3 - d)
+
+    return dataclasses.replace(jmodel, to_map_soa=to_map_soa)
+
+
+def test_reference_pallas_kernel_cannot_trace_linear_models():
+    """The fault above, pinned: the unpatched reference raises."""
+    jmodel = get_model("Linear2D")
+    cfg = jphd.PHDConfig(num_particles=4, max_components=16, max_measurements=6)
+    pose, leaves, z, z_mask = fused_state(1, 4, 16, 6, 3, model="Linear2D")
+    jc = __import__("monorfs_tpu.config", fromlist=["Config"]).Config()
+    jc.set_model_defaults("Linear2D")
+    with pytest.raises(ValueError, match="Incompatible shapes"):
+        fused_pallas.fused_stage(
+            jmodel, cfg, jc.phd_params(jnp.float32), jnp.asarray(pose, jnp.float32),
+            jmixture.SGM(*[jnp.asarray(x, jnp.float32) for x in leaves]),
+            jnp.asarray(z, jnp.float32), jnp.asarray(z_mask), interpret=True, bp=4,
+        )
+
+
+def _both_on_case(model_name, fields, state, jc=None):
+    """(JAX Pallas interpret (pred, cor), port plain (pred, cor), the JAX
+    XLA-path corrected mixture) on one kernel_cases state."""
+    from monorfs_tpu.config import Config as JConfig
+    from monorfs_tpu_torch.models import get as tget
+
+    jc = jc or JConfig()
+    jc.set_model_defaults(model_name)
+    jmodel, tmodel = _pallas_ready(get_model(model_name)), tget(model_name)
+    jcfg, tcfg = jphd.PHDConfig(**fields), phd.PHDConfig(**fields)
+    pose, leaves, z, z_mask = fused_state(*state, model=model_name)
+    jparams, tparams = params_pair(jc)
+    jpose, jz = jnp.asarray(pose, jnp.float32), jnp.asarray(z, jnp.float32)
+    jmaps = jmixture.SGM(*[jnp.asarray(x, jnp.float32) for x in leaves])
+    jout = fused_pallas.fused_stage(
+        jmodel, jcfg, jparams, jpose, jmaps, jz, jnp.asarray(z_mask), interpret=True, bp=4
+    )
+    tout = fused_kernel.fused_stage(
+        tmodel, tcfg, tparams, t32(pose), SGM(*[t32(x) for x in leaves]), t32(z),
+        torch.tensor(z_mask),
+    )
+    return jout, tout, (jmodel, jcfg, jparams, jpose, jmaps, jz, jnp.asarray(z_mask))
+
+
+def _assert_pred_close(jpred, tpred):
+    for field, a, b in zip(jpred._fields, jpred, tpred):
+        aa, bb = np_(a), b.numpy()
+        live = aa > -0.25e30 if field == "logw" else np.ones_like(aa, bool)
+        np.testing.assert_allclose(bb[live], aa[live], rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("model_name", ["Linear2D", "Linear1D"])
+def test_fused_plain_linear_matches_pallas(model_name):
+    """The linear families through the plain version and the Pallas kernel
+    in interpret mode (the JAX suite runs that kernel on PRM3D only; see
+    _pallas_ready), to the PRM3D cases' tolerances; the cap does not bind, so the XLA path's global
+    top-K cut keeps the same components and is held to them too."""
+    import jax
+
+    fields = dict(num_particles=4, max_components=48, max_measurements=12, gate_top=8,
+                  merge_rounds=4)
+    (jpred, jcor), (tpred, tcor), jargs = _both_on_case(model_name, fields, (21, 4, 48, 12, 10))
+    _assert_pred_close(jpred, tpred)
+    assert_sets_close(jcor, tcor, 4)
+    jmodel, jcfg, jparams, jpose, jmaps, jz, jmask = jargs
+    d = jmodel.meas_dim
+    fns = (jmodel.measure_soa_fn(), jmodel.jac_landmark_soa_fn(), jmodel.to_map_soa_fn(),
+           jmodel.fuzzy_visible_soa_fn(jparams.depth_map))
+    zl = [jz[:, i] for i in range(d)]
+
+    def one(pose, maps):
+        births = jphd._births_soa(jmodel, fns[2], jparams, pose, maps, zl, jmask)
+        return jphd._correct_prune_soa(
+            jmodel, jcfg, jparams, fns, pose, jmixture.concat_soa(maps, births), zl, jmask)
+
+    assert_sets_close(jax.vmap(one)(jpose, jmaps), tcor, 4)
+    assert (tcor.logw.numpy() > -0.25e30).sum() >= 4 * 8
+
+
+def test_fused_plain_k600_matches_pallas():
+    """The command-line default capacity (K0 = 600, 48 measurement slots,
+    gate_top 16, 8 merge rounds) at two particles, PRM3D."""
+    fields = dict(num_particles=2, max_components=600, max_measurements=48)
+    (jpred, jcor), (tpred, tcor), _ = _both_on_case("PRM3D", fields, (17, 2, 600, 48, 40))
+    _assert_pred_close(jpred, tpred)
+    assert_sets_close(jcor, tcor, 2)

@@ -60,3 +60,31 @@ def test_build_log_reads_only_the_current_build(tmp_path, monkeypatch):
     (tmp_path / f"beam_scan_{_build._tag()}.log").write_text("current")
     (tmp_path / "beam_scan_0123456789abcdef.log").write_text("stale")
     assert _build.build_log() == "current"
+
+
+ENTRY_POINTS = {
+    "cli": "from monorfs_tpu_torch.cli import main; "
+           "main(['-f', 'assets/linear1d.world', '-c', 'assets/mov1d.in', '--frames', '1'])",
+    "simulation": "from monorfs_tpu_torch.sim import Simulation; "
+                  "from monorfs_tpu_torch.config import Config; from monorfs_tpu_torch.io import World; "
+                  "Simulation(Config(), World.from_file('assets/sim3d.world'), [])",
+    "postanalysis": "import sys; from monorfs_tpu_torch.postanalysis import main; main(['-f', sys.argv[1]])",
+}
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
+def test_entry_points_raise_without_gpu(entry, tmp_path):
+    """cli.main, Simulation and postanalysis default to the card: with no GPU
+    visible and no device given they raise, and run nothing on the CPU."""
+    record = tmp_path / "rec.zip"
+    if entry == "postanalysis":
+        from monorfs_tpu_torch.cli import main
+
+        main(["-f", "assets/linear1d.world", "-c", "assets/mov1d.in", "-y", "--frames", "2",
+              "--device", "cpu", "-r", str(record)])
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    r = subprocess.run([sys.executable, "-c", ENTRY_POINTS[entry], str(record)], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300, env=env)
+    assert r.returncode != 0
+    assert "CUDA device requested" in r.stderr
+    assert "finished running" not in r.stdout and "ATE" not in r.stdout
