@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Smoke run of the PyTorch/CUDA port (monorfs_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--parent DIR] [--phases kernels,bench,sync,cli]
+    python3 chip_smoke.py [--parent DIR] [--phases kernels,bench,sync,cli,graph]
 
 Phases, one line each; any failure exits non-zero:
   1. device, `nvidia-smi` name and power limit, kernel build (nvcc, sm_90a);
@@ -30,6 +30,19 @@ Phases, one line each; any failure exits non-zero:
      beam kernel once per float32 SLAM frame (none in mapping-only, float64
      and odometry), every ATE / OSPA must be finite and under its limit, and
      the replayed trajectory must equal the recorded odometry integrated.
+  7. `graph`: the graph backend at full width (3D asset world, 40
+     landmarks, 300 frames: 302 poses, 160 landmark slots, 48 measurement
+     slots, 14,496 factor slots in the host navigator). `cli.main -a isam2`
+     then postanalysis, twice, with identical ATE, OSPA and landmark count
+     and both under their limits; `-i record -a isam2` over phase 6's PHD
+     recording (its own recording when phase 6 did not run); one Linear2D
+     `-a isam2` run; a 60-frame mapping-only run (ATE exactly 0);
+     `bench_isam2 --scan` and `--scan-da` over 300 frames (ATE, landmarks
+     against the world's 40, OSPA); and the host synchronisations per frame
+     of the navigator and of each scan runner, counted under
+     torch.cuda.set_sync_debug_mode("warn") with the lines that waited,
+     beside the reads the code counts itself, printed and not limited. This path runs no hand-written kernel: both launch counts
+     must stay 0 over it, and TF32 must be off.
 Nothing of the earlier phases was cut: phase 4 still runs all 300 frames.
 
 A kernel's time is its device time: torch.profiler's CUDA kernel events
@@ -45,6 +58,7 @@ The line before the last is the kernel table as JSON; the last line is
 """
 
 import argparse
+import collections
 import contextlib
 import importlib
 import importlib.util
@@ -55,22 +69,26 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from monorfs_tpu_torch import _build, cli, postanalysis
+from monorfs_tpu_torch import _build, bench_isam2, cli, postanalysis
 from monorfs_tpu_torch.bench import BENCH_CONFIG, run as run_bench
 from monorfs_tpu_torch.config import Config
 from monorfs_tpu_torch.gm.mixture import DEAD, SGM
-from monorfs_tpu_torch.io import Recording
+from monorfs_tpu_torch.io import Recording, World, parse_commands
 from monorfs_tpu_torch.kernel_cases import beam_ties, fused_state
 from monorfs_tpu_torch.models import PRM3D
 from monorfs_tpu_torch.models import get as get_model
 from monorfs_tpu_torch.profile_step import host_syncs, in_package
-from monorfs_tpu_torch.slam import association, beam_kernel, fused_kernel
+from monorfs_tpu_torch.sim.simulation import Simulation
+from monorfs_tpu_torch.slam import association, beam_kernel, fused_kernel, graph
+from monorfs_tpu_torch.slam.isam2_scan import build_isam2_scan_runner, scan_draws
+from monorfs_tpu_torch.slam.isam2_scan_da import build_mahalanobis_scan
 from monorfs_tpu_torch.slam.phd import PHDConfig
 
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
@@ -225,6 +243,13 @@ def beam_phase(dev, parent):
         10, BEAM_KERNEL)
     plain_ms = cuda_ms(lambda: beam_kernel.beam_scan_plain(*inputs, b, n_words), 5)
     bms, by = beam_bound(inputs, b)
+    wide_bms, wide_by = beam_bound(wide, wide_b)
+    wide_shape = dict(case="default-B200-C8-W4-M24", shape=dict(P=p, M=m, C=default.beam_candidates,
+                                                                B=wide_b, n_words=wide_w),
+                      max_abs_err=0.0, ms=float(np.mean(wide_ms)),
+                      plain_ms=cuda_ms(lambda: beam_kernel.beam_scan_plain(*wide, wide_b, wide_w), 2),
+                      bound_ms=wide_bms, bound_by=wide_by)
+    say("beam-shape", **wide_shape)
     # the command line's shape: the default PHDConfig over all 48 measurement
     # slots of the 3D world (no beam_meas_cap)
     cli_in = beam_random(dev, 13, p, default.estimate_cap, 48, default.beam_candidates)[0]
@@ -243,7 +268,7 @@ def beam_phase(dev, parent):
     row = dict(name="beam_scan", route="cuda", source="monorfs_tpu_torch/csrc/beam_scan.cu",
                replaces="monorfs_tpu/slam/beam_pallas.py:178", max_abs_err=0.0, ms=float(np.mean(ms)),
                wrapper_ms=w_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
-               shapes=[cli_shape])
+               shapes=[wide_shape, cli_shape])
     if parent_ms is not None:
         row["parent_ms"] = float(np.mean(parent_ms))
     return row
@@ -506,6 +531,7 @@ def run_cli(name, argv, frames, per_frame, ate_limit, ospa_limit, record):
     row = dict(run=name, frames=frames, seconds=seconds, ms_per_frame=seconds * 1e3 / frames,
                ate=ate, ate_limit=ate_limit, ospa=ospa, ospa_limit=ospa_limit, launches=launches,
                kernels_on_path=("none: dead reckoning runs no filter" if "odometry" in argv else
+                                "none: the graph backend has no hand-written kernel" if "isam2" in argv else
                                 "none: float64 takes the XLA-semantics functions and the plain beam"
                                 if per_frame == (0, 0) else
                                 "fused only: mapping-only weighs no particle" if per_frame == (1, 0)
@@ -514,45 +540,200 @@ def run_cli(name, argv, frames, per_frame, ate_limit, ospa_limit, record):
     return row, rec, launches
 
 
-def cli_phase(dev, kernels):
+def cli_phase(dev, kernels, tmp):
     """Phase 6: the command line's own entry on every asset family, then
-    postanalysis on each recording; launch counts, error limits and the
-    odometry replay against the recorded odometry integrated."""
+    postanalysis on each recording (written under `tmp`); launch counts,
+    error limits and the odometry replay against the recorded odometry
+    integrated."""
     assets = pathlib.Path(__file__).resolve().parent / "assets"
     total = {"beam_scan": 0, "fused_stage": 0}
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = pathlib.Path(tmp)
-        for name, files, flags, frames, per_frame, ate_limit, ospa_limit in CLI_RUNS:
-            argv = ["-f", str(assets / files[0]), "-c", str(assets / files[1])] + flags
-            _, _, launches = run_cli(name, argv, frames, per_frame, ate_limit, ospa_limit,
-                                     tmp / f"{name}.zip")
-            for k, n in launches.items():
-                total[k] += n
-        # replay the 3D recording through dead reckoning: its trajectory is the
-        # recorded odometry integrated from the first pose
-        _, rec, _ = run_cli("3d-replay-odometry", ["-f", str(tmp / "3d-slam.zip"), "-i", "record",
-                                                   "-a", "odometry"], 300, (0, 0), None, 1.0,
-                            tmp / "3d-odometry.zip")
-        src = Recording.load(tmp / "3d-slam.zip")
-        pose = torch.as_tensor(src.world.pose, dtype=torch.float64)
-        worst = 0.0
-        for (_, odo), (_, est) in zip(src.odometry, rec.estimate[-1][1]):
-            pose = PRM3D.pose.add_odometry(pose, torch.as_tensor(odo, dtype=torch.float64))
-            worst = max(worst, float(np.abs(pose.numpy() - est).max()))
-        if worst > 1e-4:  # float32 steps and the recording's 6 significant digits
-            raise AssertionError(f"odometry replay is {worst} off the recorded odometry integrated")
-        say("cli-replay", max_abs_difference=worst, tolerance=1e-4)
+    for name, files, flags, frames, per_frame, ate_limit, ospa_limit in CLI_RUNS:
+        argv = ["-f", str(assets / files[0]), "-c", str(assets / files[1])] + flags
+        _, _, launches = run_cli(name, argv, frames, per_frame, ate_limit, ospa_limit,
+                                 tmp / f"{name}.zip")
+        for k, n in launches.items():
+            total[k] += n
+    # replay the 3D recording through dead reckoning: its trajectory is the
+    # recorded odometry integrated from the first pose
+    _, rec, _ = run_cli("3d-replay-odometry", ["-f", str(tmp / "3d-slam.zip"), "-i", "record",
+                                               "-a", "odometry"], 300, (0, 0), None, 1.0,
+                        tmp / "3d-odometry.zip")
+    src = Recording.load(tmp / "3d-slam.zip")
+    pose = torch.as_tensor(src.world.pose, dtype=torch.float64)
+    worst = 0.0
+    for (_, odo), (_, est) in zip(src.odometry, rec.estimate[-1][1]):
+        pose = PRM3D.pose.add_odometry(pose, torch.as_tensor(odo, dtype=torch.float64))
+        worst = max(worst, float(np.abs(pose.numpy() - est).max()))
+    if worst > 1e-4:  # float32 steps and the recording's 6 significant digits
+        raise AssertionError(f"odometry replay is {worst} off the recorded odometry integrated")
+    say("cli-replay", max_abs_difference=worst, tolerance=1e-4)
     for k in kernels:  # each path's count was read with the counters set to 0 before it
         k["launches"] = k.get("launches", 0) + total[k["name"]]
         k.setdefault("launches_by_path", {})["cli"] = total[k["name"]]
+
+
+# ---- phase 7: the graph backend --------------------------------------------------
+
+# Limits of the 3D `-a isam2` runs: no worse than twice what the JAX package's
+# own run of the same command gives on a CPU in float64 (seed 0, x64 enabled):
+#   python -m monorfs_tpu.cli -f assets/sim3d.world -c assets/mov3d.in -a isam2 --dtype float64
+#     -> ATE loc RMSE 0.00465604, final OSPA 0.00508514, 40 landmarks.
+# (tests/test_graph.py:145-178 holds the JAX navigator to 0.05 in pose and
+# landmark position on its own small world.) The replay of the PHD recording
+# sees the same world through other noise: the same limits.
+# The 2D world is held to phase 6's limits for it. The JAX package's run of
+#   python -m monorfs_tpu.cli -f assets/linear2d.world -c assets/mov2d.in -a isam2 --dtype float64
+# gives ATE 0.106666, OSPA 0.106264 and 25 landmarks, and the port's navigator
+# gives exactly these over that recording (-i record), but on this world the
+# result hangs on the noise drawn: the port's own CPU runs with seeds 0 to 4
+# give ATE 0.48, 0.68, 0.064, 0.071, 0.072 and OSPA 0.60, 0.63, 0.039, 0.049,
+# 0.091, so twice one run's value is no bound for another seed's draws.
+# The scan runners work in float32 on their own draws: the 3D trajectory
+# limit of phase 6 for the known-label scan; for the Mahalanobis scan the JAX
+# package's own test bounds (tests/test_isam2_scan_da.py: ATE below 0.08, at
+# most 6 landmarks beyond the world's) and phase 6's 3D map limit.
+ISAM2_3D = (2 * 0.00465604, 2 * 0.00508514)
+ISAM2_2D = (0.6, 0.6)
+# Mapping-only pins every pose: ATE exactly 0. With all poses pinned the
+# navigator of both packages stops minting landmarks early on this world (a
+# 60-frame CPU run of the port maps 18 of the 40, OSPA 0.561757, and the JAX
+# package's replay of that recording gives the same 18 and 0.561757), so the
+# map is only required to be non-empty and under the OSPA cutoff of 1.
+ISAM2_MAPPING = (1e-6, 0.9)
+SCAN_ATE, SCAN_DA_ATE, SCAN_DA_OSPA, SCAN_DA_EXTRA = 0.03, 0.08, 0.25, 6
+SYNC_FRAMES = 20
+
+
+def count_syncs(fn, frames):
+    """How often a frame of fn() makes the host wait for the device, as
+    torch.cuda.set_sync_debug_mode("warn") reports it: (per frame, the same
+    by the file and line that waited, largest first)."""
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    where = collections.Counter(f"{pathlib.Path(w.filename).name}:{w.lineno}"
+                                for w in seen if "synchroniz" in str(w.message))
+    return sum(where.values()) / frames, {k: n / frames for k, n in where.most_common(12)}
+
+
+def run_bench_isam2(argv):
+    """bench_isam2.main as a user runs it; returns its detail line."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        bench_isam2.main(argv)
+    headline = json.loads(out.getvalue().strip().splitlines()[-1])
+    detail = json.loads(err.getvalue().strip().splitlines()[-1])["detail"]
+    if headline["value"] != detail["fps"] or not np.isfinite(detail["fps"]):
+        raise AssertionError(f"bench_isam2 {argv}: headline {headline} against detail {detail}")
+    return detail
+
+
+def graph_sync_counts(dev):
+    """Host synchronisations per frame over SYNC_FRAMES frames of the
+    navigator (after 10 frames) and of each scan runner at its 300-frame
+    capacity, beside what the code counts itself."""
+    assets = pathlib.Path(__file__).resolve().parent / "assets"
+    world = World.from_file(assets / "sim3d.world")
+    commands = parse_commands((assets / "mov3d.in").read_text())
+    sim = Simulation(Config(), world, commands, algorithm="isam2", particles=1, device=dev)
+    for cmd in commands[:10]:
+        sim.step(cmd)
+    nav = sim.isam2
+    reads0, uploads0, graph.counts["cholesky"] = nav.reads, nav.uploads, 0
+
+    def nav_frames():
+        for cmd in commands[10 : 10 + SYNC_FRAMES]:
+            sim.step(cmd)
+
+    per_frame, where = count_syncs(nav_frames, SYNC_FRAMES)
+    rows = [dict(path="navigator", syncs_per_frame=per_frame,
+                 reads_counted_per_frame=(nav.reads - reads0 + graph.counts["cholesky"]) / SYNC_FRAMES,
+                 uploads_counted_per_frame=(nav.uploads - uploads0) / SYNC_FRAMES, where=where)]
+    _, cmds = bench_isam2.world_and_commands(300, torch.float32, dev)
+    for name, build, cfg in (
+        ("scan", build_isam2_scan_runner, Config()),
+        ("scan-da", build_mahalanobis_scan,
+         Config.from_file(assets.parent / "experiments" / "configs" / "chap4-default.cfg")),
+    ):
+        runner, carry, model = build(cfg, world, 300, device=dev)
+        draws = scan_draws(model, cfg, world, 300, device=dev)
+        stats = {"iterations": [], "reads": 0}
+        kw = dict(stats=stats) if name == "scan-da" else {}
+        graph.counts["cholesky"] = 0
+        per_frame, where = count_syncs(lambda: runner(carry, cmds[:SYNC_FRAMES], draws, **kw), SYNC_FRAMES)
+        rows.append(dict(path=name, syncs_per_frame=per_frame,
+                         reads_counted_per_frame=(stats["reads"] + graph.counts["cholesky"]) / SYNC_FRAMES,
+                         where=where))
+    for row in rows:
+        say("graph-syncs", frames=SYNC_FRAMES, **row)
+
+
+def graph_phase(dev, kernels, tmp):
+    """Phase 7: the graph backend through cli.main, postanalysis.main and
+    bench_isam2.main."""
+    graph.assert_full_precision()
+    assets = pathlib.Path(__file__).resolve().parent / "assets"
+    world3d = ["-f", str(assets / "sim3d.world"), "-c", str(assets / "mov3d.in")]
+    total = {"beam_scan": 0, "fused_stage": 0}
+
+    def run(name, argv, frames, limits):
+        row, rec, launches = run_cli(name, argv, frames, (0, 0), limits[0], limits[1], tmp / f"{name}.zip")
+        for k, n in launches.items():
+            total[k] += n
+        return row["ate"], row["ospa"], len(rec.maps[-1][1])
+
+    first = run("3d-isam2", world3d + ["-a", "isam2"], 300, ISAM2_3D)
+    second = run("3d-isam2-again", world3d + ["-a", "isam2"], 300, ISAM2_3D)
+    if first != second:
+        raise AssertionError(f"two runs of the same -a isam2 command differ: {first} and {second}")
+    if abs(first[2] - 40) > SCAN_DA_EXTRA:
+        raise AssertionError(f"-a isam2 mapped {first[2]} landmarks of the world's 40")
+    say("graph-deterministic", ate=first[0], ospa=first[1], landmarks=first[2], identical=True)
+
+    source = tmp / "3d-slam.zip"  # phase 6's PHD recording
+    if not source.exists():
+        source = tmp / "3d-isam2.zip"
+    replay = run("3d-replay-isam2", ["-f", str(source), "-i", "record", "-a", "isam2"], 300, ISAM2_3D)
+    say("graph-replay", source=source.name, ate=replay[0], ospa=replay[1], landmarks=replay[2])
+    run("2d-isam2", ["-f", str(assets / "linear2d.world"), "-c", str(assets / "mov2d.in"), "-a", "isam2"],
+        270, ISAM2_2D)
+    mapping = run("3d-isam2-mapping", world3d + ["-a", "isam2", "-y", "--frames", "60"], 60, ISAM2_MAPPING)
+    if mapping[2] == 0:
+        raise AssertionError("-a isam2 -y mapped no landmark")
+    say("graph-mapping", ate=mapping[0], ospa=mapping[1], landmarks=mapping[2])
+
+    reset_launches()
+    scan = run_bench_isam2(["--scan"])
+    if not (scan["frames"] == 300 and scan["ate_rmse_loc"] < SCAN_ATE and scan["final_landmarks"] == 40):
+        raise AssertionError(f"bench_isam2 --scan: {scan}")
+    say("graph-scan", **scan, ate_limit=SCAN_ATE)
+    da = run_bench_isam2(["--scan-da", "--variant", "default"])
+    if not (da["frames"] == 300 and da["ate_rmse_loc"] < SCAN_DA_ATE and da["final_ospa"] < SCAN_DA_OSPA
+            and abs(da["final_landmarks"] - 40) <= SCAN_DA_EXTRA):
+        raise AssertionError(f"bench_isam2 --scan-da: {da}")
+    say("graph-scan-da", **da, ate_limit=SCAN_DA_ATE, ospa_limit=SCAN_DA_OSPA)
+    graph_sync_counts(dev)
+    for k, n in read_launches().items():
+        total[k] += n
+    if any(total.values()):
+        raise AssertionError(f"the graph path launched a PHD kernel: {total}")
+    graph.assert_full_precision()
+    for k in kernels:
+        k.setdefault("launches", 0)
+        k.setdefault("launches_by_path", {})["graph"] = 0
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=pathlib.Path, default=None,
                     help="another checkout whose kernels are timed on the same inputs")
-    ap.add_argument("--phases", default="kernels,bench,sync,cli",
-                    help="comma-separated subset of kernels,bench,sync,cli (default: all)")
+    ap.add_argument("--phases", default="kernels,bench,sync,cli,graph",
+                    help="comma-separated subset of kernels,bench,sync,cli,graph (default: all)")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -587,8 +768,12 @@ def main():
         if ours:
             raise AssertionError(f"the main path makes the host wait for the device: {ours}")
         say("sync-check", frames=10, syncs=syncs)
-    if "cli" in phases:
-        cli_phase(dev, kernels)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        if "cli" in phases:
+            cli_phase(dev, kernels, tmp)
+        if "graph" in phases:
+            graph_phase(dev, kernels, tmp)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

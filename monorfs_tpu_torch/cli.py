@@ -10,8 +10,8 @@ The flags of the reference CLI (mono-rfs/Program.cs:114-131):
   -i/--input simulation|record|kinect, -x/--headless (always true here),
 plus --seed, --dtype, --progress, --checkpoint, --frames and --device (cuda
 by default; without a GPU the run raises unless given --device cpu).
-Ported: -a phd and odometry, -i simulation and record; the other choices
-raise NotImplementedError."""
+Ported: -a phd, odometry and isam2, -i simulation and record; -a loopy and
+-i kinect raise NotImplementedError."""
 
 import argparse
 import signal

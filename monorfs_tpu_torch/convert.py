@@ -12,7 +12,7 @@ from . import resolve_device
 from .config import Config
 from .gm.mixture import GM, SGM
 from .sim.vehicle import VehicleState
-from .slam import phd
+from .slam import graph, isam2_scan_da, phd
 
 _PARAM_FIELDS = (
     "motion_cov", "meas_cov", "pd", "clutter_density", "birth_weight",
@@ -59,6 +59,31 @@ def vehicle_state(pose, landmarks, landmark_mask, dtype=torch.float32, device="c
         pose=_t(pose, dtype, dev),
         landmarks=_t(landmarks, dtype, dev),
         landmark_mask=_t(landmark_mask, torch.bool, dev),
+    )
+
+
+def graph_state(fields, dtype=torch.float64, device="cuda"):
+    """GraphState from a mapping of the JAX GraphState fields as numpy
+    (`{k: np.asarray(v) for k, v in state._asdict().items()}`)."""
+    dev = resolve_device(device)
+    kinds = dict(
+        poses=dtype, landmarks=dtype, between=dtype, f_z=dtype, lm_mask=torch.bool,
+        between_mask=torch.bool, pose_fixed=torch.bool, f_mask=torch.bool,
+        f_pose=torch.int64, f_lm=torch.int64,
+    )
+    return graph.GraphState(
+        n_poses=int(fields["n_poses"]), **{k: _t(fields[k], kind, dev) for k, kind in kinds.items()}
+    )
+
+
+def da_state(fields, dtype=torch.float32, device="cuda"):
+    """DAState from a mapping of the JAX DAState fields as numpy."""
+    dev = resolve_device(device)
+    return isam2_scan_da.DAState(
+        pl_cov=_t(fields["pl_cov"], dtype, dev),
+        cand_mean=_t(fields["cand_mean"], dtype, dev),
+        cand_count=_t(fields["cand_count"], torch.int64, dev),
+        next_label=int(fields["next_label"]),
     )
 
 

@@ -34,6 +34,11 @@ def make(loc, q):
     )
 
 
+def normalize(state):
+    """Renormalize the quaternion part."""
+    return make(location(state), quat.normalize(orientation(state)))
+
+
 def add(state, delta):
     """Semi-Lie (+) of a 6-tangent (Pose3D.cs:282-291)."""
     q = orientation(state)

@@ -35,6 +35,7 @@ class Model:
     # array-of-structures forms: (params, pose [..., S], lm [..., 3]) -> ...
     measure: Callable
     jac_landmark: Callable  # -> [..., D, 3]
+    jac_pose: Callable  # -> [..., D, T], in the tangent of pose.add
     to_map: Callable  # (params, pose, z [..., D]) -> lm [..., 3]
     fuzzy_visible: Callable
     visible: Callable
@@ -51,6 +52,9 @@ class Model:
 
     def fuzzy_visible_fn(self):
         return self.fuzzy_visible
+
+    def visible_fn(self):
+        return self.visible
 
     def measure_soa_fn(self):
         return self.measure_soa

@@ -54,6 +54,11 @@ def _make(dim, name):
         eye = torch.eye(dim, 3, dtype=pose.dtype, device=pose.device)
         return eye.expand(pose.shape[:-1] + (dim, 3))
 
+    def jac_pose(p, pose, landmark):
+        """-I: the pose enters the measurement with a minus sign."""
+        eye = torch.eye(dim, dtype=pose.dtype, device=pose.device)
+        return (-eye).expand(pose.shape[:-1] + (dim, dim))
+
     def to_map(p, pose, z):
         """Embed into 3D with zero padding (Linear2DMeasurer.cs:200-203)."""
         lm = pose + z
@@ -105,6 +110,7 @@ def _make(dim, name):
         params=Params(),
         measure=measure,
         jac_landmark=jac_landmark,
+        jac_pose=jac_pose,
         to_map=to_map,
         visible=visible,
         fuzzy_visible=fuzzy_visible,

@@ -60,20 +60,37 @@ def measure(p: Params, pose, landmark):
     )
 
 
-def jac_landmark(p: Params, pose, landmark):
-    """dh/dm = J_proj C(q)^T (PRM3DMeasurer.cs:157-177) -> [..., 3, 3]."""
-    q = pose3d.orientation(pose)
-    local = quat.rotate(quat.conj(q), landmark - pose3d.location(pose))
+def _local(pose, landmark):
+    """Landmark in the camera-local frame."""
+    return quat.rotate(quat.conj(pose3d.orientation(pose)), landmark - pose3d.location(pose))
+
+
+def _projection_jacobian(p: Params, local):
+    """d(px, py, range)/d(local) (PRM3DMeasurer.cs:163-170)."""
     lx, ly, lz = local[..., 0], local[..., 1], local[..., 2]
     one = torch.ones_like(lz)
     mag = torch.where(lz > 0, one, -one) * torch.sqrt(lx * lx + ly * ly + lz * lz)
     f, zero = p.focal, torch.zeros_like(lz)
-    jproj = torch.stack([
+    return torch.stack([
         torch.stack([f / lz, zero, -f * lx / (lz * lz)], dim=-1),
         torch.stack([zero, f / lz, -f * ly / (lz * lz)], dim=-1),
         torch.stack([lx / mag, ly / mag, lz / mag], dim=-1),
     ], dim=-2)
-    return jproj @ quat.to_matrix(quat.conj(q))
+
+
+def jac_landmark(p: Params, pose, landmark):
+    """dh/dm = J_proj C(q)^T (PRM3DMeasurer.cs:157-177) -> [..., 3, 3]."""
+    jproj = _projection_jacobian(p, _local(pose, landmark))
+    return jproj @ quat.to_matrix(quat.conj(pose3d.orientation(pose)))
+
+
+def jac_pose(p: Params, pose, landmark):
+    """dh/dpose in the semi-Lie `pose3d.add` tangent (body-frame translation,
+    right-multiplied rotation): J = J_proj [-I | [local]_x] -> [..., 3, 6]."""
+    local = _local(pose, landmark)
+    jproj = _projection_jacobian(p, local)
+    eye = torch.eye(3, dtype=local.dtype, device=local.device).expand(jproj.shape)
+    return jproj @ torch.cat([-eye, pose3d.cross_matrix(local)], dim=-1)
 
 
 def to_map(p: Params, pose, z):
@@ -212,6 +229,7 @@ MODEL = Model(
     params=Params(),
     measure=measure,
     jac_landmark=jac_landmark,
+    jac_pose=jac_pose,
     to_map=to_map,
     fuzzy_visible=fuzzy_visible,
     visible=visible,

@@ -4,6 +4,7 @@ the command-line path.
     python -m monorfs_tpu_torch.profile_step [--frames 50] [--trace PATH]
     python -m monorfs_tpu_torch.profile_step --sync-check [--frames 10]
     python -m monorfs_tpu_torch.profile_step --cli 3d|2d|2dloop|1d [--frames 50]
+    python -m monorfs_tpu_torch.profile_step --graph nav|scan|scan-da [--frames 20]
 
 Runs one warm-up chunk, then `--frames` frames under torch.profiler (CPU and
 CUDA activity) and prints one JSON object: host wall time per frame, device
@@ -18,6 +19,14 @@ trace.
 (200 particles, float32, the default PHDConfig: K=600, beam 200 x 8) twice,
 with and without the per-frame history (`_record`, which reads the best map
 and every pose to the host), and prints both objects.
+
+--graph profiles the graph backend on the 3D asset world: `nav` the
+host-interactive navigator through Simulation -a isam2 (float64), frames
+251 onward, where its buckets have reached their full size; `scan` and
+`scan-da` the first frames of the scan runners at their 300-frame capacity
+(float32), whose cost per frame does not depend on the frame. Stages:
+graph.assoc (association; in scan-da it holds graph.auction), graph.hungarian,
+graph.solve (Gauss-Newton), graph.marginals.
 
 --sync-check instead runs the frames under
 torch.cuda.set_sync_debug_mode("warn") and prints every call that made the
@@ -45,7 +54,9 @@ from .sim.simulation import Simulation
 CLI_WORLDS = {"3d": ("sim3d.world", "mov3d.in"), "2d": ("linear2d.world", "mov2d.in"),
               "2dloop": ("linear2dloop.world", "mov2dloop.in"), "1d": ("linear1d.world", "mov1d.in")}
 STAGES = ("vehicle", "record", "phd.predict", "phd.fused_stage", "phd.weight_inputs",
-          "phd.beam_scan", "phd.normalise_resample")
+          "phd.beam_scan", "phd.normalise_resample", "graph.assoc", "graph.hungarian",
+          "graph.auction", "graph.solve", "graph.marginals")
+GRAPH_WARM = 250  # navigator frames run before its profile starts
 KERNELS = {"beam_scan": "beam_scan", "fused_stage": "fused_stage_kernel"}  # name: substring
 PACKAGE = pathlib.Path(__file__).resolve().parent
 
@@ -159,14 +170,64 @@ def profile_cli(which, n, collect_history, device="cuda"):
     return out
 
 
+def profile_graph(which, n, device="cuda"):
+    """Profile n frames of the graph backend on the 3D asset world."""
+    from . import bench_isam2
+    from .slam.isam2_scan import build_isam2_scan_runner, scan_draws
+    from .slam.isam2_scan_da import build_mahalanobis_scan
+
+    world = World.from_file(ROOT / "assets" / "sim3d.world")
+    if which == "nav":
+        commands = parse_commands((ROOT / "assets" / "mov3d.in").read_text())
+        sim = Simulation(Config(), world, commands, algorithm="isam2", particles=1,
+                         dtype=np.float64, device=device)
+        for cmd in commands[:GRAPH_WARM]:
+            sim.step(cmd)
+        todo = commands[GRAPH_WARM : GRAPH_WARM + n]
+        n = len(todo)
+
+        def run():
+            for cmd in todo:
+                sim.step(cmd)
+    else:
+        capacity = 300
+        if which == "scan":
+            cfg = Config()
+            runner, carry, model = build_isam2_scan_runner(cfg, world, capacity, device=device)
+        else:
+            cfg = Config.from_file(ROOT / "experiments" / "configs" / "chap4-default.cfg")
+            runner, carry, model = build_mahalanobis_scan(cfg, world, capacity, device=device)
+        _, cmds = bench_isam2.world_and_commands(capacity, torch.float32, torch.device(device))
+        draws = scan_draws(model, cfg, world, capacity, device=device)
+        runner(carry, cmds[:2], draws)  # warm-up
+
+        def run():
+            runner(carry, cmds[:n], draws)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out = summarise(prof, wall, n)
+    out.update(path="graph", mode=which)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=50)
     ap.add_argument("--trace", type=pathlib.Path, default=None)
     ap.add_argument("--sync-check", action="store_true")
     ap.add_argument("--cli", choices=sorted(CLI_WORLDS), default=None)
+    ap.add_argument("--graph", choices=["nav", "scan", "scan-da"], default=None)
     args = ap.parse_args(argv)
     n = args.frames
+
+    if args.graph:
+        print(json.dumps(profile_graph(args.graph, n)), flush=True)
+        return
 
     if args.cli:
         for collect_history in (True, False):

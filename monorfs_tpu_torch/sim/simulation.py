@@ -10,10 +10,10 @@ odometry) collapse the particle set like StartSlam / StartMapping
 recorded, so the best particle's full trajectory can be reconstructed for
 estimate.out.
 
-Ported: the `phd` and `odometry` algorithms, simulated and replayed
-(recording) input, the PRM3D, Linear2D and Linear1D models. The graph
-(`isam2`) and smoother (`loopy`) algorithms and the Kinect input raise
-NotImplementedError at construction.
+Ported: the `phd`, `odometry` and `isam2` (graph backend, slam/isam2nav.py)
+algorithms, simulated and replayed (recording) input, the PRM3D, Linear2D
+and Linear1D models. The smoother (`loopy`) algorithm and the Kinect input
+raise NotImplementedError at construction.
 
 Randomness: the simulation owns a torch.Generator on its device, seeded with
 `seed`; every frame's draws come from `draws.frame(i)`, by default a
@@ -121,12 +121,12 @@ class Simulation:
         (RecordVehicle.cs:64-349): the true trajectory, the noisy odometry
         and the measurement sets come from the recording, so different
         algorithms can be solved against identical data."""
-        if algorithm in ("isam2", "loopy"):
+        if algorithm == "loopy":
             raise NotImplementedError(
-                f"algorithm '{algorithm}' is not ported yet (ROADMAP.md, modules still "
-                "to port: graph backend / smoother)"
+                "algorithm 'loopy' is not ported yet (ROADMAP.md, modules still to port: "
+                "smoother)"
             )
-        if algorithm not in ("phd", "odometry"):
+        if algorithm not in ("phd", "odometry", "isam2"):
             raise ValueError(f"unknown algorithm {algorithm}")
         if kinect_source is not None:
             raise NotImplementedError(
@@ -206,6 +206,19 @@ class Simulation:
                 self.world.pose,
                 self.dtype,
                 self.device,
+            )
+        elif self.algorithm == "isam2":
+            from ..slam.isam2nav import ISAM2Navigator
+
+            self.isam2 = ISAM2Navigator(
+                model,
+                self.cfg,
+                np.asarray(self.world.pose, np.float64),
+                max_poses=len(self.commands) + 2,
+                max_landmarks=max(4 * len(self.world.landmarks), 64),
+                meas_per_frame=self.max_meas,
+                onlymapping=self.onlymapping,
+                device=self.device,
             )
         else:  # odometry
             self.nav_pose = self._tensor(self.world.pose)
@@ -297,6 +310,13 @@ class Simulation:
                 self.nparams, self.nstate, noisy, z[:, : self.model.meas_dim], mask,
                 draws["motion_normals"], draws["resample_u"], true_pose=self.vstate.pose,
             )
+        elif self.algorithm == "isam2":
+            host = lambda x: x.detach().cpu().numpy()  # noqa: E731
+            live = host(mask)
+            self.isam2.predict(host(noisy), host(self.vstate.pose))
+            zs = host(z)[live][:, : self.model.meas_dim]
+            true_labels = host(labels)[live] if labels is not None else None
+            self.isam2.slam_update(list(zs), true_labels)
         elif self.mode_mapping:
             self.nav_pose = self.vstate.pose
         else:
@@ -349,6 +369,10 @@ class Simulation:
                 "best": best,
                 "parents": host(self.nstate.ancestor).copy(),
             })
+        elif self.algorithm == "isam2":
+            means, covs = self.isam2.map_estimate
+            self.way_maps.append((t, [(1.0, means[i], covs[i]) for i in range(len(means))]))
+            self.frames.append({"poses": self.isam2.pose[None, :].copy(), "best": 0})
         else:
             self.way_maps.append((t, []))
             self.frames.append({"poses": host(self.nav_pose)[None, :].copy(), "best": 0})

@@ -9,7 +9,8 @@ ancestry exact, the best map's component count exact and its weights to
 1e-9. Then the command line on the CPU for 1D mapping and 2D SLAM, whose
 recordings both packages' postanalysis read to the same numbers (1e-12:
 the OSPA distance table is computed by torch in the port, by numpy in the
-reference). Unsupported algorithms and inputs raise NotImplementedError."""
+reference). Unsupported algorithms and inputs raise NotImplementedError
+(the graph backend, `isam2`, has its own file: test_torch_isam2_scan.py)."""
 
 import numpy as np
 import pytest
@@ -165,7 +166,7 @@ def test_in_band_mode_switch():
     assert sim.frames[4]["best"] == 0
 
 
-@pytest.mark.parametrize("algorithm", ["isam2", "loopy"])
+@pytest.mark.parametrize("algorithm", ["loopy"])
 def test_unported_algorithms_raise(algorithm):
     world = World.from_file("assets/linear2d.world")
     cfg = _configs()[1]

@@ -92,3 +92,91 @@ def assert_sets_close(ref, got, p):
             used[jj] = True
             np.testing.assert_allclose(mu_k[j], mu_r[jj], rtol=1e-4, atol=1e-4)
             np.testing.assert_allclose(c_k[j], c_r[jj], rtol=1e-3, atol=1e-5)
+
+
+# -- graph backend ------------------------------------------------------------
+
+def fields(named_tuple):
+    """A JAX NamedTuple's fields as numpy, for monorfs_tpu_torch.convert."""
+    return {k: np.asarray(v) for k, v in named_tuple._asdict().items()}
+
+
+def graph_problem(name, n_poses=12, n_lm=8, seed=0, dtype=jnp.float64, duplicate=False):
+    """A hand-built graph on model `name` (Linear2D or PRM3D): a noisy
+    odometry chain, landmarks seen from ~70% of the poses, holes in the
+    factor arrays and spare capacity everywhere. With `duplicate` one
+    (pose, landmark) pair holds two factors. Returns (JAX model, JAX
+    GraphConfig, JAX GraphState, motion_info, meas_info) with numpy
+    informations."""
+    from monorfs_tpu import models as jmodels
+    from monorfs_tpu.geometry import pose3d as jpose3d
+    from monorfs_tpu.slam import graph as jgraph
+
+    rng = np.random.default_rng(seed)
+    jm = jmodels.get(name)
+    jcfg = jgraph.GraphConfig(max_poses=n_poses + 2, max_landmarks=n_lm + 2,
+                              max_factors=(n_poses + 2) * n_lm)
+    if name == "PRM3D":
+        o, d = 6, 3
+        poses = [np.array([0, 0, 0, 1, 0, 0, 0.0])]
+        deltas = [rng.normal(size=6) * np.array([.03, .03, .03, .01, .01, .01])
+                  for _ in range(n_poses - 1)]
+        for dl in deltas:
+            poses.append(np.asarray(jpose3d.add_odometry(jnp.asarray(poses[-1]), jnp.asarray(dl))))
+        lms = np.column_stack([rng.uniform(-.3, .3, n_lm), rng.uniform(-.3, .3, n_lm),
+                               rng.uniform(.8, 1.5, n_lm)])
+        lm_noise = np.ones(3)
+        meas_info = np.diag(1.0 / np.array([2.0, 2.0, 1e-3]))
+    else:
+        o, d = 2, 2
+        poses = [np.zeros(2)]
+        deltas = [np.array([.15, .02]) + rng.normal(size=2) * .01 for _ in range(n_poses - 1)]
+        for dl in deltas:
+            poses.append(poses[-1] + dl)
+        lms = np.column_stack([rng.uniform(-1, 3, n_lm), rng.uniform(-1, 1, n_lm), np.zeros(n_lm)])
+        lm_noise = np.array([1.0, 1.0, 0.0])
+        meas_info = np.diag(np.full(2, 1.0 / 5e-4))
+    motion_info = np.diag(np.full(o, 1e3))
+    st = jgraph.empty_state(jm, jcfg, poses[0], jnp.float64)
+    p, b, bm = np.array(st.poses), np.array(st.between), np.array(st.between_mask)
+    for t in range(1, n_poses):
+        p[t] = np.asarray(jm.pose.add(jnp.asarray(poses[t]), jnp.asarray(rng.normal(size=o) * .01)))
+        b[t], bm[t] = deltas[t - 1], True
+    lm, lmm = np.array(st.landmarks), np.array(st.lm_mask)
+    lm[:n_lm] = lms + rng.normal(size=(n_lm, 3)) * .02 * lm_noise
+    lmm[:n_lm] = True
+    fp, fl, fz, fm = (np.array(x) for x in (st.f_pose, st.f_lm, st.f_z, st.f_mask))
+    fi = 0
+    for t in range(n_poses):
+        for j in range(n_lm):
+            if rng.random() < 0.7:
+                z = np.asarray(jm.measure(jm.params, jnp.asarray(poses[t]), jnp.asarray(lms[j])))
+                for _ in range(2 if duplicate and (t, j) == (3, 2) else 1):
+                    fp[fi], fl[fi], fz[fi], fm[fi] = t, j, z + rng.normal(size=d) * 1e-3, True
+                    fi += 1
+                if rng.random() < 0.1:
+                    fi += 1  # a hole
+    st = jgraph.GraphState(
+        jnp.asarray(p, dtype), jnp.int32(n_poses), jnp.asarray(lm, dtype), jnp.asarray(lmm),
+        jnp.asarray(b, dtype), jnp.asarray(bm), st.pose_fixed, jnp.asarray(fp), jnp.asarray(fl),
+        jnp.asarray(fz, dtype), jnp.asarray(fm),
+    )
+    return jm, jcfg, st, motion_info, meas_info
+
+
+def jax_scan_draws(key, frames, n_landmarks, meas_dim, odo_dim, max_clutter, clutter_count, dtype):
+    """The vehicle's draws as the JAX scan runners make them: the carry key
+    split three ways per frame (isam2_scan.py:91), the measurement key four
+    ways (sim/vehicle.py:67), stacked over frames for the port's runners."""
+    import jax
+
+    out = {k: [] for k in ("odo_normals", "detect_u", "meas_normals", "clutter_draw", "clutter_u")}
+    for _ in range(frames):
+        key, kupd, kmeas = jax.random.split(key, 3)
+        kdetect, knoise, kcount, kclutter = jax.random.split(kmeas, 4)
+        out["odo_normals"].append(np_(jax.random.normal(kupd, (odo_dim,), dtype)))
+        out["detect_u"].append(np_(jax.random.uniform(key=kdetect, shape=(n_landmarks,))))
+        out["meas_normals"].append(np_(jax.random.normal(knoise, (n_landmarks, meas_dim), dtype)))
+        out["clutter_draw"].append(np_(jax.random.poisson(kcount, clutter_count)))
+        out["clutter_u"].append(np_(jax.random.uniform(kclutter, (max_clutter, meas_dim))))
+    return {k: torch.tensor(np.stack(v)) for k, v in out.items()}
