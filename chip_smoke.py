@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Smoke run of the PyTorch/CUDA port (monorfs_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--parent DIR] [--phases kernels,bench,sync,cli,graph]
+    python3 chip_smoke.py [--parent DIR] [--phases kernels,bench,sync,cli,graph,loopy]
 
 Phases, one line each; any failure exits non-zero:
   1. device, `nvidia-smi` name and power limit, kernel build (nvcc, sm_90a);
@@ -43,6 +43,19 @@ Phases, one line each; any failure exits non-zero:
      torch.cuda.set_sync_debug_mode("warn") with the lines that waited,
      beside the reads the code counts itself, printed and not limited. This path runs no hand-written kernel: both launch counts
      must stay 0 over it, and TF32 must be off.
+  8. `loopy`: the smoother. The beam kernel bit-identical to its plain
+     version at the smoother's value-only shape (P = J*M = 1056 seeds, B=32,
+     C=8, one word, 33 steps), the fused kernel with one measurement mask
+     per particle ([8, M]: the leave-block-out passes) and with P=1 against
+     its plain version to phase 3's tolerances, each timed; then the chap5
+     s2 workflow through cli.main as experiments/run_experiments.py runs it
+     (-a phd -p 50 on linear2d.world + mov2d.in with chap5-default2d.cfg,
+     the odometry replay of that recording, then `-i record -a loopy`
+     twice, with identical ATE and OSPA under the limits below), a float64
+     `-a loopy` run on the card (90 frames), one 3D `-a loopy` run over
+     phase 6's PHD recording (cut to fit the phase in 5 minutes), both
+     kernels launched over the float32 runs, and the host synchronisations
+     per node of the smoother.
 Nothing of the earlier phases was cut: phase 4 still runs all 300 frames.
 
 A kernel's time is its device time: torch.profiler's CUDA kernel events
@@ -58,7 +71,6 @@ The line before the last is the kernel table as JSON; the last line is
 """
 
 import argparse
-import collections
 import contextlib
 import importlib
 import importlib.util
@@ -69,7 +81,6 @@ import subprocess
 import sys
 import tempfile
 import time
-import warnings
 
 import numpy as np
 import torch
@@ -84,7 +95,7 @@ from monorfs_tpu_torch.io import Recording, World, parse_commands
 from monorfs_tpu_torch.kernel_cases import beam_ties, fused_state
 from monorfs_tpu_torch.models import PRM3D
 from monorfs_tpu_torch.models import get as get_model
-from monorfs_tpu_torch.profile_step import host_syncs, in_package
+from monorfs_tpu_torch.profile_step import count_syncs, host_syncs, in_package, loopy_navigator
 from monorfs_tpu_torch.sim.simulation import Simulation
 from monorfs_tpu_torch.slam import association, beam_kernel, fused_kernel, graph
 from monorfs_tpu_torch.slam.isam2_scan import build_isam2_scan_runner, scan_draws
@@ -125,18 +136,29 @@ def cuda_ms(fn, reps):
 def kernel_ms(fn, reps, kernel):
     """Device milliseconds per launch of the kernel whose name holds
     `kernel`: torch.profiler's CUDA kernel events of reps calls of fn, their
-    mean duration (as profile_step reads them)."""
+    mean duration (as profile_step reads them). Once a process has run for
+    a minute or so, the tracer drops a leading run of a session's kernel
+    events (whatever the host does before the first launch); so a session
+    with fewer than reps - 1 events is taken again, up to three, said as
+    `profiler-short`, and the fullest kept: each event is a whole launch of
+    the same kernel on the same inputs. No event in all three raises, as
+    more events than calls does."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA and kernel in e.name]
-    # the tracer now and then loses one event of a run; more than that is a fault
-    if not reps - 1 <= len(events) <= reps:
-        raise AssertionError(f"{len(events)} {kernel} kernel events for {reps} calls")
-    return sum(e.time_range.elapsed_us() for e in events) / 1e3 / len(events)
+    best = []
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA and kernel in e.name]
+        best = max(best, events, key=len)
+        if len(best) >= reps - 1:
+            break
+        say("profiler-short", kernel=kernel, reps=reps, events=len(events), attempt=attempt)
+    if not 1 <= len(best) <= reps:
+        raise AssertionError(f"{len(best)} {kernel} kernel events for {reps} calls")
+    return sum(e.time_range.elapsed_us() for e in best) / 1e3 / len(best)
 
 
 def wall_ms(fn, reps):
@@ -321,7 +343,8 @@ def fused_ops(maps, pred, z_mask, cor, params, m):
     alive = pred.logw > DEAD / 2
     bp = [leaf[:, k0:] for leaf in pred[:3]]
     d2 = sum((b[:, :, None] - mm[:, None, :]) ** 2 for b, mm in zip(bp, pred[:3]))
-    in_gate = (d2 <= params.density_radius ** 2) & alive[:, None, :] & z_mask[None, :, None]
+    rows = z_mask if z_mask.dim() == 2 else z_mask[None, :]  # [M] or one mask per particle
+    in_gate = (d2 <= params.density_radius ** 2) & alive[:, None, :] & rows[:, :, None]
     n_gate = in_gate.sum((1, 2))
     counts = torch.where(alive.sum(1) + n_gate > k0, 31, 1)
     n_out = (cor.logw > DEAD / 2).sum(1)
@@ -348,7 +371,8 @@ def fused_bound(p, k0, m, d, s_dim, maps, pred, z_mask, cor, params):
     """(bound ms, bound by) of one fused launch: every input read once and
     every output written once against this data's operation count."""
     kp = k0 + m
-    nbytes = 4 * (10 * p * k0 + s_dim * p + d * m + m + 16 + d + d * d + 10 * p * kp + 10 * p * k0)
+    nbytes = 4 * (10 * p * k0 + s_dim * p + d * m + z_mask.numel() + 16 + d + d * d + 10 * p * kp
+                  + 10 * p * k0)
     return bound(nbytes, fused_ops(maps, pred, z_mask, cor, params, m))
 
 
@@ -604,23 +628,6 @@ SCAN_ATE, SCAN_DA_ATE, SCAN_DA_OSPA, SCAN_DA_EXTRA = 0.03, 0.08, 0.25, 6
 SYNC_FRAMES = 20
 
 
-def count_syncs(fn, frames):
-    """How often a frame of fn() makes the host wait for the device, as
-    torch.cuda.set_sync_debug_mode("warn") reports it: (per frame, the same
-    by the file and line that waited, largest first)."""
-    with warnings.catch_warnings(record=True) as seen:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            fn()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    where = collections.Counter(f"{pathlib.Path(w.filename).name}:{w.lineno}"
-                                for w in seen if "synchroniz" in str(w.message))
-    return sum(where.values()) / frames, {k: n / frames for k, n in where.most_common(12)}
-
-
 def run_bench_isam2(argv):
     """bench_isam2.main as a user runs it; returns its detail line."""
     out, err = io.StringIO(), io.StringIO()
@@ -728,12 +735,190 @@ def graph_phase(dev, kernels, tmp):
         k.setdefault("launches_by_path", {})["graph"] = 0
 
 
+# ---- phase 8: the smoother --------------------------------------------------------
+
+# Limits of the chap5 s2 smoother run: twice the JAX package's ATE and its OSPA
+# + 0.1, from its own CPU run of the same three commands (float32, seed 0):
+#   python -m monorfs_tpu.cli -f assets/linear2d.world -c assets/mov2d.in -a phd -p 50
+#       -g experiments/configs/chap5-default2d.cfg -r phd.zip   (ATE 0.21316, OSPA 0.403826)
+#   python -m monorfs_tpu.cli -f phd.zip -i record -a odometry -g <same cfg> -r odo.zip
+#       (ATE 0.629969, OSPA 1)
+#   python -m monorfs_tpu.cli -f odo.zip -i record -a loopy -g <same cfg> -r loopy.zip
+#       -> ATE loc RMSE 0.251138, final OSPA 0.475211 (74 s on the CPU).
+# The port's PHD run draws other noise, so its recording and smoother result
+# differ; the limits bound the algorithm, not the draws.
+LOOPY_2D = (2 * 0.251138, 0.475211 + 0.1)
+# The 3D run smooths a PHD recording of the 3D asset world by the same rule;
+# the JAX package's CPU run (float32, seed 0):
+#   python -m monorfs_tpu.cli -f assets/sim3d.world -c assets/mov3d.in -a phd -p 200 -r phd3d.zip
+#       (ATE 0.00868911, OSPA 0.0846579; 529 s on the CPU)
+#   python -m monorfs_tpu.cli -f phd3d.zip -i record -a loopy -r loopy3d.zip
+#       -> ATE loc RMSE 0.00748151, final OSPA 0.0830064 (181 s).
+LOOPY_3D = (2 * 0.00748151, 0.0830064 + 0.1)
+LOOPY_BUDGET_S = 300.0
+CHAP5_CFG = pathlib.Path(__file__).resolve().parent / "experiments" / "configs" / "chap5-default2d.cfg"
+
+
+def shape_row(kernels, name, row, base):
+    """Add a timed shape to kernel `name`'s row (made from `base` when the
+    kernels phase did not run)."""
+    k = next((k for k in kernels if k["name"] == name), None)
+    if k is None:
+        k = dict(base, max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
+                 bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None, shapes=[])
+        kernels.append(k)
+    k["max_abs_err"] = max(k["max_abs_err"], row["max_abs_err"])
+    k["shapes"].append(row)
+
+
+def pass_masks(z_mask, passes):
+    """[passes, M] masks as the smoother's cavity passes get them, made
+    harder: pass b also drops the slots j % passes == b, and pass 0 drops
+    the whole frame (the pass that leaves this frame's block out)."""
+    m = z_mask.shape[0]
+    iota = torch.arange(m, device=z_mask.device)
+    rows = z_mask[None, :] & (iota[None, :] % passes != torch.arange(passes, device=z_mask.device)[:, None])
+    rows[0] = False
+    return rows
+
+
+def loopy_kernels(dev, kernels):
+    """The two kernels at the smoother's shapes on the 2D (M=33) and 3D
+    (M=48) worlds, each against its plain version, timed."""
+    for name, m, seed in (("loopy-P1056-B32-C8-W1-M33", 33, 17), ("loopy3d-P1536-B32-C8-W1-M48", 48, 19)):
+        p, b, c = 32 * m, 32, 8  # J*M seeds of one refit node: jmaps of 32, beam 32 x 8
+        inputs, n_words = beam_random(dev, seed, p, 32, m, c)
+        beam_check(name, inputs, b, n_words)
+        bms, by = beam_bound(inputs, b)
+        row = dict(case=name, shape=dict(P=p, M=m, C=c, B=b, n_words=n_words),
+                   max_abs_err=0.0, bound_ms=bms, bound_by=by,
+                   ms=kernel_ms(lambda: beam_kernel.beam_scan_batch(*inputs, b, n_words), 20, BEAM_KERNEL),
+                   plain_ms=cuda_ms(lambda: beam_kernel.beam_scan_plain(*inputs, b, n_words), 3))
+        say("beam-shape", **row)
+        shape_row(kernels, "beam_scan", row, dict(
+            name="beam_scan", route="cuda", source="monorfs_tpu_torch/csrc/beam_scan.cu",
+            replaces="monorfs_tpu/slam/beam_pallas.py:178"))
+
+    cases = [  # name, model, M, passes, seed, landmarks
+        ("loopy-lin2d-K128-M33-P8-mask-per-particle", "Linear2D", 33, 8, 27, 25),
+        ("loopy-lin2d-K128-M33-P1", "Linear2D", 33, 1, 27, 25),
+        ("loopy-prm3d-K128-M48-P8-mask-per-particle", "PRM3D", 48, 8, 29, 40),
+        ("loopy-prm3d-K128-M48-P1", "PRM3D", 48, 1, 29, 40),
+    ]
+    for name, mname, m, pp, seed, n_lm in cases:
+        model, params = get_model(mname), model_phd_params(mname, dev)
+        cfg = PHDConfig(num_particles=pp, max_components=128, max_measurements=m, gate_top=8)
+        pose, maps, z, z_mask = warm_state(seed, pp, 128, m, n_lm, dev, model=mname)
+        pose = pose[:1].expand(pp, -1).contiguous()  # every pass at one pose, as the smoother snaps them
+        if pp > 1:
+            z_mask = pass_masks(z_mask, pp)
+        args = (model, cfg, params, pose, maps, z, z_mask)
+        pred, cor = fused_kernel.fused_stage(*args)
+        pred_ref, cor_ref = fused_kernel.fused_stage_plain(*args)
+        torch.cuda.synchronize()
+        err = compare_fused(pred, cor, pred_ref, cor_ref)
+        bms, by = fused_bound(pp, 128, m, model.meas_dim, model.pose.state_dim, maps, pred, z_mask, cor,
+                              params)
+        row = dict(case=name, model=mname, shape=dict(P=pp, K0=128, M=m, KP=128 + m),
+                   mask_shape=list(z_mask.shape), max_abs_err=err, bound_ms=bms, bound_by=by,
+                   alive_out=int((cor.logw > DEAD / 2).sum().item()),
+                   ms=kernel_ms(lambda: fused_kernel.fused_stage(*args), 20, FUSED_KERNEL),
+                   plain_ms=cuda_ms(lambda: fused_kernel.fused_stage_plain(*args), 3))
+        say("fused-shape", **row)
+        shape_row(kernels, "fused_stage", row, dict(
+            name="fused_stage", route="cuda", source="monorfs_tpu_torch/csrc/fused_stage.cu",
+            replaces="monorfs_tpu/slam/fused_pallas.py:621"))
+
+
+def run_loopy_cli(name, argv, limits, record, float32=True):
+    """cli.main -a loopy then postanalysis.main, as a user runs them: the
+    row, with both kernels' launches over the run (none in float64)."""
+    reset_launches()
+    cached = set(association._GRAPHS)  # the plain beam's CUDA graphs before the run
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli.main(argv + ["-r", str(record)])
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    with contextlib.redirect_stdout(out):
+        postanalysis.main(["-f", str(record)])
+    text = out.getvalue()
+    ate, ospa = printed_number(text, "ATE loc RMSE"), printed_number(text, "final OSPA")
+    frames = len(Recording.load(record).trajectory)
+    if not (all(launches.values()) if float32 else not any(launches.values())):
+        raise AssertionError(f"{name}: launches {launches} ({'float32' if float32 else 'float64'})")
+    if not (np.isfinite(ate) and ate <= limits[0] and np.isfinite(ospa) and ospa <= limits[1]):
+        raise AssertionError(f"{name}: ATE {ate} (limit {limits[0]}), OSPA {ospa} (limit {limits[1]})")
+    row = dict(run=name, frames=frames, seconds=seconds, ms_per_node=seconds * 1e3 / frames, ate=ate,
+               ate_limit=limits[0], ospa=ospa, ospa_limit=limits[1], launches=launches,
+               launches_per_node={k: n / frames for k, n in launches.items()},
+               beam_graphs_captured=len(set(association._GRAPHS) - cached))
+    say("loopy-run", **row)
+    return row
+
+
+def loopy_phase(dev, kernels, tmp):
+    """Phase 8: the smoother's command line on the chap5 s2 workflow
+    (twice), in float64, and on the 3D world (its kernel shapes are checked
+    with phases 2-3, by loopy_kernels)."""
+    graph.assert_full_precision()
+    assets = pathlib.Path(__file__).resolve().parent / "assets"
+    cfg = ["-g", str(CHAP5_CFG)]
+    with contextlib.redirect_stdout(io.StringIO()):  # the recordings the smoother reads
+        cli.main(["-f", str(assets / "linear2d.world"), "-c", str(assets / "mov2d.in"), "-a", "phd",
+                  "-p", "50", "-r", str(tmp / "s2-phd.zip")] + cfg)
+        cli.main(["-f", str(tmp / "s2-phd.zip"), "-i", "record", "-a", "odometry",
+                  "-r", str(tmp / "s2-odo.zip")] + cfg)
+    replay = ["-f", str(tmp / "s2-odo.zip"), "-i", "record", "-a", "loopy"] + cfg
+    total = {"beam_scan": 0, "fused_stage": 0}
+
+    def tally(row):
+        for k, n in row["launches"].items():
+            total[k] += n
+        return row
+
+    first = tally(run_loopy_cli("s2-loopy", replay, LOOPY_2D, tmp / "s2-loopy.zip"))
+    second = tally(run_loopy_cli("s2-loopy-again", replay, LOOPY_2D, tmp / "s2-loopy-2.zip"))
+    if (first["ate"], first["ospa"]) != (second["ate"], second["ospa"]):
+        raise AssertionError(f"two runs of the same -a loopy command differ: {first} and {second}")
+    say("loopy-deterministic", ate=first["ate"], ospa=first["ospa"], identical=True)
+    # float64 on the card, cut to a third of the frames (the plain beam and the
+    # XLA-semantics filter take most of a run's time): held to the same limits
+    tally(run_loopy_cli("s2-loopy-float64-90", replay + ["--dtype", "float64", "--frames", "90"],
+                        LOOPY_2D, tmp / "s2-loopy-f64.zip", float32=False))
+    graph.assert_full_precision()
+
+    source = tmp / "3d-slam.zip"  # phase 6's PHD recording
+    if not source.exists():
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["-f", str(assets / "sim3d.world"), "-c", str(assets / "mov3d.in"), "-a", "phd",
+                      "-p", "200", "-r", str(source)])
+    frames = 300
+    per_node_s = first["seconds"] / first["frames"] * 1.8  # a 3D node costs 1.7 2D nodes (PERF.md)
+    if per_node_s * frames > LOOPY_BUDGET_S:
+        frames = int(LOOPY_BUDGET_S / per_node_s)
+        say("loopy-3d-cut", frames=frames, of=300, reason="the phase would pass 5 minutes")
+    tally(run_loopy_cli("3d-loopy", ["-f", str(source), "-i", "record", "-a", "loopy",
+                                     "--frames", str(frames)], LOOPY_3D, tmp / "3d-loopy.zip"))
+
+    nav = loopy_navigator("2d", 10, dev)
+    per_node, where = count_syncs(nav.sweep, 10)
+    say("loopy-syncs", nodes=10, syncs_per_node=per_node, where=where,
+        note="a refit sweep over 10 nodes, its two objective reads included")
+    if not all(total.values()):
+        raise AssertionError(f"the smoother launched a kernel no time: {total}")
+    for k in kernels:
+        k["launches"] = k.get("launches", 0) + total[k["name"]]
+        k.setdefault("launches_by_path", {})["loopy"] = total[k["name"]]
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=pathlib.Path, default=None,
                     help="another checkout whose kernels are timed on the same inputs")
-    ap.add_argument("--phases", default="kernels,bench,sync,cli,graph",
-                    help="comma-separated subset of kernels,bench,sync,cli,graph (default: all)")
+    ap.add_argument("--phases", default="kernels,bench,sync,cli,graph,loopy",
+                    help="comma-separated subset of kernels,bench,sync,cli,graph,loopy (default: all)")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -760,6 +945,8 @@ def main():
             ptxas=[ln.strip() for ln in plib.build_log().splitlines() if "registers" in ln])
 
     kernels = [beam_phase(dev, parent), fused_phase(dev, parent)] if "kernels" in phases else []
+    if "loopy" in phases:  # the smoother's kernel shapes, beside the others
+        loopy_kernels(dev, kernels)
     if "bench" in phases:
         bench_phase(dev, kernels)
     if "sync" in phases:
@@ -774,6 +961,8 @@ def main():
             cli_phase(dev, kernels, tmp)
         if "graph" in phases:
             graph_phase(dev, kernels, tmp)
+        if "loopy" in phases:
+            loopy_phase(dev, kernels, tmp)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,8 +10,8 @@ The flags of the reference CLI (mono-rfs/Program.cs:114-131):
   -i/--input simulation|record|kinect, -x/--headless (always true here),
 plus --seed, --dtype, --progress, --checkpoint, --frames and --device (cuda
 by default; without a GPU the run raises unless given --device cpu).
-Ported: -a phd, odometry and isam2, -i simulation and record; -a loopy and
--i kinect raise NotImplementedError."""
+Ported: -a phd, odometry, isam2 and loopy, -i simulation and record; -i
+kinect raises NotImplementedError."""
 
 import argparse
 import signal

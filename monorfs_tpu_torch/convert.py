@@ -12,7 +12,7 @@ from . import resolve_device
 from .config import Config
 from .gm.mixture import GM, SGM
 from .sim.vehicle import VehicleState
-from .slam import graph, isam2_scan_da, phd
+from .slam import graph, isam2_scan_da, loopy, phd
 
 _PARAM_FIELDS = (
     "motion_cov", "meas_cov", "pd", "clutter_density", "birth_weight",
@@ -85,6 +85,16 @@ def da_state(fields, dtype=torch.float32, device="cuda"):
         cand_count=_t(fields["cand_count"], torch.int64, dev),
         next_label=int(fields["next_label"]),
     )
+
+
+def loopy_state(fields, dtype=torch.float32, device="cuda"):
+    """LoopyState from a mapping of the JAX LoopyState fields as numpy
+    (`{k: np.asarray(v) for k, v in state._asdict().items()}`)."""
+    dev = resolve_device(device)
+    return loopy.LoopyState(**{
+        name: _t(fields[name], torch.bool if name == "node_mask" else dtype, dev)
+        for name in loopy.LoopyState._fields
+    })
 
 
 def gm(mean, cov, logw, dtype=torch.float32, device="cuda"):

@@ -343,7 +343,7 @@ template <class Mdl, bool PAIRS_GLOBAL>
 __global__ void __launch_bounds__(THREADS)
 fused_stage_kernel(const float* __restrict__ prm_g, const float* __restrict__ pose_g,
                    const float* __restrict__ maps, const float* __restrict__ zg,
-                   const int* __restrict__ zmask, float* __restrict__ pred,
+                   const int* __restrict__ zmask, int zmask_stride, float* __restrict__ pred,
                    float* __restrict__ cor, float* __restrict__ work, int P, int K0, int M,
                    int gate_top, int merge_rounds, ModelParams mp, long long* clk) {
   extern __shared__ float sm[];
@@ -396,7 +396,7 @@ fused_stage_kernel(const float* __restrict__ prm_g, const float* __restrict__ po
       zj[i] = zg[j * D + i];
       zs[i * M + j] = zj[i];
     }
-    zl[j] = zmask[j] != 0 ? 1.f : 0.f;
+    zl[j] = zmask[(size_t)p * zmask_stride + j] != 0 ? 1.f : 0.f;  // row p, or the shared row
     Mdl::to_map(mp, fr, zj, b);
     for (int i = 0; i < 3; ++i) bp[i * M + j] = b[i];
   }
@@ -874,16 +874,16 @@ fused_stage_kernel(const float* __restrict__ prm_g, const float* __restrict__ po
 
 template <class Mdl, bool PAIRS_GLOBAL>
 int launch(const float* prm, const float* pose, const float* maps, const float* z,
-           const int* zmask, float* pred, float* cor, float* work, int P, int K0, int M,
-           int gate_top, int merge_rounds, const ModelParams& mp, long long* clk,
+           const int* zmask, int zmask_stride, float* pred, float* cor, float* work, int P,
+           int K0, int M, int gate_top, int merge_rounds, const ModelParams& mp, long long* clk,
            cudaStream_t stream) {
   static std::atomic<size_t> smem_set[kMaxDevices];  // one per instantiation
   const size_t smem = Layout(K0, M, PAIRS_GLOBAL).total * sizeof(float);
   auto kernel = fused_stage_kernel<Mdl, PAIRS_GLOBAL>;
   cudaError_t err = allow_smem((const void*)kernel, smem_set, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<P, THREADS, smem, stream>>>(prm, pose, maps, z, zmask, pred, cor, work, P, K0, M,
-                                       gate_top, merge_rounds, mp, clk);
+  kernel<<<P, THREADS, smem, stream>>>(prm, pose, maps, z, zmask, zmask_stride, pred, cor, work,
+                                       P, K0, M, gate_top, merge_rounds, mp, clk);
   return (int)cudaGetLastError();
 }
 
@@ -896,13 +896,15 @@ extern "C" size_t fused_stage_smem_bytes(int K0, int M, int pairs_global) {
 }
 
 // meas_dim 3 = PRM3D, 2 = Linear2D, 1 = Linear1D. prm [16 + D + D*D]; pose
-// [P, S]; maps [10, P, K0]; z [M, D] f32; zmask [M] int32; pred [10, P, K0+M]
+// [P, S]; maps [10, P, K0]; z [M, D] f32; zmask int32, [M] shared by every
+// particle (zmask_stride 0) or [P, M] one row per particle (zmask_stride M); pred [10, P, K0+M]
 // and cor [10, P, K0] f32 out; work: null (pair table in shared memory) or
 // [P, M, K0+M] f32 scratch; m0..m7 the model's parameters (ModelParams); clk
 // [P, NPHASE+1] int64 phase clocks, or null (the main path).
 extern "C" int fused_stage_launch(int meas_dim, const float* prm, const float* pose,
                                   const float* maps, const float* z, const int* zmask,
-                                  float* pred, float* cor, float* work, int P, int K0, int M,
+                                  int zmask_stride, float* pred, float* cor, float* work, int P,
+                                  int K0, int M,
                                   int gate_top, int merge_rounds, float m0, float m1, float m2,
                                   float m3, float m4, float m5, float m6, float m7,
                                   long long* clk, void* stream) {
@@ -910,10 +912,10 @@ extern "C" int fused_stage_launch(int meas_dim, const float* prm, const float* p
   const ModelParams mp{{m0, m1, m2, m3, m4, m5, m6, m7}};
   const cudaStream_t st = (cudaStream_t)stream;
 #define FUSED_LAUNCH(MDL)                                                                    \
-  (work ? launch<MDL, true>(prm, pose, maps, z, zmask, pred, cor, work, P, K0, M, gate_top, \
-                            merge_rounds, mp, clk, st)                                       \
-        : launch<MDL, false>(prm, pose, maps, z, zmask, pred, cor, work, P, K0, M, gate_top, \
-                             merge_rounds, mp, clk, st))
+  (work ? launch<MDL, true>(prm, pose, maps, z, zmask, zmask_stride, pred, cor, work, P, K0, M, \
+                            gate_top, merge_rounds, mp, clk, st)                               \
+        : launch<MDL, false>(prm, pose, maps, z, zmask, zmask_stride, pred, cor, work, P, K0, M, \
+                             gate_top, merge_rounds, mp, clk, st))
   switch (meas_dim) {
     case 3: return FUSED_LAUNCH(Prm3d);
     case 2: return FUSED_LAUNCH(Linear<2>);

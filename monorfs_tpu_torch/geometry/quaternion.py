@@ -96,6 +96,14 @@ def rotate(q, v):
     return v + qw * t + _cross(qv, t)
 
 
+def vector_rotator(src, dst):
+    """Quaternion rotating unit vector src into unit vector dst
+    (Quaternion.cs:281-284)."""
+    w = 1.0 + torch.sum(src * dst, dim=-1, keepdim=True)
+    v = _cross(src, dst)
+    return normalize(torch.cat([w.expand(v.shape[:-1] + (1,)), v], dim=-1))
+
+
 def to_matrix(q):
     """Rotation matrix [..., 3, 3] (Quaternion.cs:327-342)."""
     w, x, y, z = q.unbind(-1)

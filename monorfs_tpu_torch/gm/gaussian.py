@@ -29,7 +29,9 @@ def det(cov):
 
 
 def inv(cov):
-    """Adjugate inverse for [..., D, D] with D in {1, 2, 3}."""
+    """Adjugate inverse for [..., D, D] with D in {1, 2, 3}; LU above that,
+    without the status check that would wait for the device (a singular
+    matrix gives non-finite entries, as in the JAX package)."""
     d = cov.shape[-1]
     if d == 1:
         return 1.0 / cov
@@ -52,7 +54,7 @@ def inv(cov):
             dim=-2,
         )
         return adj / dt
-    return torch.linalg.inv(cov)
+    return torch.linalg.inv_ex(cov)[0]
 
 
 def mahalanobis2(x, mean, cov_inv):

@@ -37,6 +37,7 @@ class Model:
     jac_landmark: Callable  # -> [..., D, 3]
     jac_pose: Callable  # -> [..., D, T], in the tangent of pose.add
     to_map: Callable  # (params, pose, z [..., D]) -> lm [..., 3]
+    fit_to_measurement: Callable  # (params, pose0, z, lm) -> pose [..., S]
     fuzzy_visible: Callable
     visible: Callable
     random_measure: Callable  # (params, uniforms [..., D]) -> z [..., D]

@@ -65,6 +65,10 @@ def _make(dim, name):
         pad = torch.zeros(lm.shape[:-1] + (3 - dim,), dtype=lm.dtype, device=lm.device)
         return torch.cat([lm, pad], dim=-1)
 
+    def fit_to_measurement(p, pose0, z, landmark):
+        """pose = landmark - z (Linear2DMeasurer.cs:146-149)."""
+        return landmark[..., :dim] - z
+
     def visible(p, z):
         return torch.all((-p.range < z) & (z < p.range), dim=-1)
 
@@ -112,6 +116,7 @@ def _make(dim, name):
         jac_landmark=jac_landmark,
         jac_pose=jac_pose,
         to_map=to_map,
+        fit_to_measurement=fit_to_measurement,
         visible=visible,
         fuzzy_visible=fuzzy_visible,
         random_measure=random_measure,

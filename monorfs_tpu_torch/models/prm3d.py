@@ -101,6 +101,24 @@ def to_map(p: Params, pose, z):
     return pose3d.location(pose) + quat.rotate(pose3d.orientation(pose), diff)
 
 
+def fit_to_measurement(p: Params, pose0, z, landmark):
+    """Closed-form pose best relating z to the landmark, keeping pose0's
+    orientation as far as the measurement allows (PRM3DMeasurer.cs:221-243)."""
+    q0 = pose3d.orientation(pose0)
+    lm_local = quat.rotate(quat.conj(q0), landmark - pose3d.location(pose0))
+    invf = 1.0 / p.focal
+    px, py, rng = z[..., 0], z[..., 1], z[..., 2]
+    mz = rng / torch.sqrt(1.0 + (px * px + py * py) * invf * invf)
+    m_local = torch.stack([px * mz * invf, py * mz * invf, mz], dim=-1)
+
+    def unit(v):
+        return v / torch.clamp(torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True)), min=1e-12)
+
+    align = quat.vector_rotator(unit(lm_local), unit(m_local))
+    rot = quat.mul(quat.conj(align), q0)
+    return pose3d.make(landmark - quat.rotate(rot, m_local), rot)
+
+
 def _fuzzy(p: Params, px, py, rng, ramp):
     d = torch.minimum((px - p.film_left) / ramp[0], (p.film_right - px) / ramp[0])
     d = torch.minimum(d, (py - p.film_top) / ramp[1])
@@ -231,6 +249,7 @@ MODEL = Model(
     jac_landmark=jac_landmark,
     jac_pose=jac_pose,
     to_map=to_map,
+    fit_to_measurement=fit_to_measurement,
     fuzzy_visible=fuzzy_visible,
     visible=visible,
     random_measure=random_measure,

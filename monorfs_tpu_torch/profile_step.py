@@ -5,6 +5,7 @@ the command-line path.
     python -m monorfs_tpu_torch.profile_step --sync-check [--frames 10]
     python -m monorfs_tpu_torch.profile_step --cli 3d|2d|2dloop|1d [--frames 50]
     python -m monorfs_tpu_torch.profile_step --graph nav|scan|scan-da [--frames 20]
+    python -m monorfs_tpu_torch.profile_step --loopy 2d|3d [--frames 40] [--sweeps 1]
 
 Runs one warm-up chunk, then `--frames` frames under torch.profiler (CPU and
 CUDA activity) and prints one JSON object: host wall time per frame, device
@@ -28,12 +29,24 @@ host-interactive navigator through Simulation -a isam2 (float64), frames
 graph.assoc (association; in scan-da it holds graph.auction), graph.hungarian,
 graph.solve (Gauss-Newton), graph.marginals.
 
+--loopy profiles the smoother at full width (the JAX LoopyConfig defaults,
+float32) over the first `--frames` frames of a dead-reckoning run: the chap5
+2D world (experiments/configs/chap5-default2d.cfg, linear2d.world, mov2d.in)
+or the 3D asset world. It times `--sweeps` sweeps of LoopyPHDNavigator (the
+first is the sequential refit; each is scored by the trajectory objective,
+and the initial estimate too) and the map history, and prints per node:
+stages loopy.refit.{seeds,grad,fan,map}, loopy.objective.{cavity,ll},
+loopy.final_map and loopy.sweep.* (from the third sweep on), both kernels'
+device time and launches, and the host synchronisations per node of a
+refit over the first 10 nodes, with the lines that waited.
+
 --sync-check instead runs the frames under
 torch.cuda.set_sync_debug_mode("warn") and prints every call that made the
 host wait for the device, with the file and line it came from; it exits
 non-zero if one came from this package."""
 
 import argparse
+import collections
 import json
 import pathlib
 import sys
@@ -55,7 +68,10 @@ CLI_WORLDS = {"3d": ("sim3d.world", "mov3d.in"), "2d": ("linear2d.world", "mov2d
               "2dloop": ("linear2dloop.world", "mov2dloop.in"), "1d": ("linear1d.world", "mov1d.in")}
 STAGES = ("vehicle", "record", "phd.predict", "phd.fused_stage", "phd.weight_inputs",
           "phd.beam_scan", "phd.normalise_resample", "graph.assoc", "graph.hungarian",
-          "graph.auction", "graph.solve", "graph.marginals")
+          "graph.auction", "graph.solve", "graph.marginals", "loopy.refit.seeds",
+          "loopy.refit.grad", "loopy.refit.fan", "loopy.refit.map", "loopy.objective.cavity",
+          "loopy.objective.ll", "loopy.final_map", "loopy.sweep.forward", "loopy.sweep.backward",
+          "loopy.sweep.map", "loopy.sweep.fuse")
 GRAPH_WARM = 250  # navigator frames run before its profile starts
 KERNELS = {"beam_scan": "beam_scan", "fused_stage": "fused_stage_kernel"}  # name: substring
 PACKAGE = pathlib.Path(__file__).resolve().parent
@@ -103,6 +119,23 @@ def host_syncs(frames=10, device="cuda"):
 
 def in_package(filename):
     return pathlib.Path(filename).resolve().is_relative_to(PACKAGE)
+
+
+def count_syncs(fn, frames):
+    """How often a frame of fn() makes the host wait for the device, as
+    torch.cuda.set_sync_debug_mode("warn") reports it: (per frame, the same
+    by the file and line that waited, largest first)."""
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    where = collections.Counter(f"{pathlib.Path(w.filename).name}:{w.lineno}"
+                                for w in seen if "synchroniz" in str(w.message))
+    return sum(where.values()) / frames, {k: n / frames for k, n in where.most_common(12)}
 
 
 def summarise(prof, wall, n):
@@ -215,15 +248,69 @@ def profile_graph(which, n, device="cuda"):
     return out
 
 
+def loopy_navigator(which, n, device="cuda"):
+    """The smoother's navigator at full width, float32, over the first n
+    frames of a dead-reckoning run of the 2D chap5 or the 3D asset world
+    (the chap5 grids smooth an odometry recording)."""
+    from .slam.loopynav import LoopyPHDNavigator
+
+    world_file, command_file = CLI_WORLDS[which]
+    cfg = Config.from_file(ROOT / "experiments" / "configs" / "chap5-default2d.cfg") \
+        if which == "2d" else Config()
+    world = World.from_file(ROOT / "assets" / world_file)
+    commands = parse_commands((ROOT / "assets" / command_file).read_text())[:n]
+    sim = Simulation(cfg, world, commands, algorithm="odometry", dtype=np.float32, device=device).run()
+    return LoopyPHDNavigator(
+        sim.model, cfg, np.array([f["poses"][0] for f in sim.frames]),
+        [o for _, o in sim.way_odometry], [zs for _, zs in sim.way_measurements],
+        max_meas=sim.max_meas, dtype=torch.float32, device=device,
+    )
+
+
+def profile_loopy(which, n, sweeps, device="cuda"):
+    """Profile `sweeps` sweeps and the map history of the smoother over n
+    nodes; per-node figures."""
+    from .slam import beam_kernel, fused_kernel
+
+    nav = loopy_navigator(which, n, device)
+    torch.cuda.synchronize()
+    beam0, fused0 = beam_kernel.beam_scan_batch.launches, fused_kernel.fused_stage.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(sweeps):
+            nav.sweep()
+        nav.map_history()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out = summarise(prof, wall, n)
+    out.update(path="loopy", world=which, nodes=n, sweeps=sweeps, seconds=wall,
+               shape=dict(K0=nav.lcfg.inner.max_components, M=nav.z.shape[1], J=nav.lcfg.jmap_cap,
+                          B=nav.lcfg.beam_width, blocks=nav.lcfg.blocks, ga=[nav.lcfg.ga_iters,
+                                                                             nav.lcfg.ga_steps]),
+               counted_launches_per_node={
+                   "beam_scan": (beam_kernel.beam_scan_batch.launches - beam0) / n,
+                   "fused_stage": (fused_kernel.fused_stage.launches - fused0) / n})
+    small = loopy_navigator(which, 10, device)
+    out["syncs_per_node"], out["sync_sites_per_node"] = count_syncs(small.sweep, 10)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--frames", type=int, default=50)
+    ap.add_argument("--frames", type=int, default=None, help="frames (nodes for --loopy; "
+                    "default 40, else 50)")
     ap.add_argument("--trace", type=pathlib.Path, default=None)
     ap.add_argument("--sync-check", action="store_true")
     ap.add_argument("--cli", choices=sorted(CLI_WORLDS), default=None)
     ap.add_argument("--graph", choices=["nav", "scan", "scan-da"], default=None)
+    ap.add_argument("--loopy", choices=["2d", "3d"], default=None)
+    ap.add_argument("--sweeps", type=int, default=1, help="--loopy: smoother sweeps")
     args = ap.parse_args(argv)
-    n = args.frames
+    n = args.frames or 50
+
+    if args.loopy:
+        print(json.dumps(profile_loopy(args.loopy, args.frames or 40, args.sweeps)), flush=True)
+        return
 
     if args.graph:
         print(json.dumps(profile_graph(args.graph, n)), flush=True)

@@ -10,10 +10,10 @@ odometry) collapse the particle set like StartSlam / StartMapping
 recorded, so the best particle's full trajectory can be reconstructed for
 estimate.out.
 
-Ported: the `phd`, `odometry` and `isam2` (graph backend, slam/isam2nav.py)
-algorithms, simulated and replayed (recording) input, the PRM3D, Linear2D
-and Linear1D models. The smoother (`loopy`) algorithm and the Kinect input
-raise NotImplementedError at construction.
+Ported: the `phd`, `odometry`, `isam2` (graph backend, slam/isam2nav.py)
+and `loopy` (offline smoother, slam/loopynav.py) algorithms, simulated and
+replayed (recording) input, the PRM3D, Linear2D and Linear1D models. The
+Kinect input raises NotImplementedError at construction.
 
 Randomness: the simulation owns a torch.Generator on its device, seeded with
 `seed`; every frame's draws come from `draws.frame(i)`, by default a
@@ -35,7 +35,7 @@ from ..gm import mixture
 from ..io.recording import Recording
 from ..io.world import World
 from ..models import get as get_model
-from ..slam import phd
+from ..slam import loopy, phd
 from . import vehicle as vehicle_mod
 
 DIRAC_COV = 0.001 * np.eye(3)
@@ -121,12 +121,7 @@ class Simulation:
         (RecordVehicle.cs:64-349): the true trajectory, the noisy odometry
         and the measurement sets come from the recording, so different
         algorithms can be solved against identical data."""
-        if algorithm == "loopy":
-            raise NotImplementedError(
-                "algorithm 'loopy' is not ported yet (ROADMAP.md, modules still to port: "
-                "smoother)"
-            )
-        if algorithm not in ("phd", "odometry", "isam2"):
+        if algorithm not in ("phd", "odometry", "isam2", "loopy"):
             raise ValueError(f"unknown algorithm {algorithm}")
         if kinect_source is not None:
             raise NotImplementedError(
@@ -220,6 +215,10 @@ class Simulation:
                 onlymapping=self.onlymapping,
                 device=self.device,
             )
+        elif self.algorithm == "loopy":
+            # offline smoother: the navigator is built in run(), from an
+            # inner run's estimate (LoopyPHDNavigator.cs:223-246)
+            self.loopy = None
         else:  # odometry
             self.nav_pose = self._tensor(self.world.pose)
         self.mode_mapping = self.onlymapping
@@ -382,6 +381,8 @@ class Simulation:
         rewritten every CheckpointCycleTime seconds (Simulation.cs:500-510);
         `abort_flag` (a mutable [bool]) stops gracefully mid-run (the SIGINT
         path, Program.cs:65-87)."""
+        if self.algorithm == "loopy":
+            return self._run_loopy(progress)
         last_checkpoint = time.time()
         for i, cmd in enumerate(self.commands):
             if abort_flag is not None and abort_flag[0]:
@@ -393,6 +394,57 @@ class Simulation:
             if checkpoint_file and time.time() - last_checkpoint > self.cfg.checkpoint_cycle_time:
                 self.save(checkpoint_file)
                 last_checkpoint = time.time()
+        return self
+
+    def _run_loopy(self, progress=False):
+        """The offline smoother: the initial estimate is the replayed
+        recording's own estimate where it has one (the reference reads its
+        "Loopy PHD initialization data from file", Simulation.cs:317-321,
+        :360-366), else an inner PHD run's; then the sweeps. The recording
+        gets the inner run's ground truth, the smoothed trajectory and the
+        map filtered over it, frame by frame."""
+        from ..slam.loopynav import LoopyPHDNavigator
+
+        use_recorded = self.replay is not None and bool(self.replay.estimate)
+        inner = Simulation(
+            self.cfg, self.world, self.commands,
+            algorithm="odometry" if use_recorded else "phd",
+            particles=self.particles, onlymapping=self.onlymapping, dtype=self.dtype,
+            phd_config=self.phd_cfg, replay=self.replay, device=self.device,
+        )
+        inner.run(progress=progress)
+        if use_recorded:
+            est_traj = [v for _, v in self.replay.estimate[-1][1]]  # the last snapshot
+        else:
+            est_traj = [f["poses"][f["best"]] for f in inner.frames]
+        odometry = [o for _, o in inner.way_odometry]
+        meas = [zs for _, zs in inner.way_measurements]
+        t = len(est_traj)
+        self.loopy = LoopyPHDNavigator(
+            self.model, self.cfg, np.array(est_traj), odometry, meas, max_meas=self.max_meas,
+            dtype=self.dtype, device=self.device,
+            loopy_cfg=loopy.LoopyConfig(max_nodes=t, max_meas=self.max_meas),
+        )
+        # the sequential refit, then LoopySweeps - 1 Jacobi sweeps
+        for s in range(self.cfg.loopy_sweeps):
+            self.loopy.sweep()
+            if progress:
+                print(f"sweep {s + 1}/{self.cfg.loopy_sweeps}", flush=True)
+
+        # ground-truth streams from the inner run; estimate and maps from the
+        # smoother, the map history filtered over the final trajectory
+        self.waypoints = inner.waypoints
+        self.way_odometry = inner.way_odometry
+        self.way_measurements = inner.way_measurements
+        self.way_vismaps = inner.way_vismaps
+        self.tags = inner.tags
+        traj = self.loopy.trajectory
+        self.frames = [{"poses": traj[i][None, :], "best": 0} for i in range(len(traj))]
+        hist = self.loopy.map_history()
+        self.way_maps = [
+            (t, hist[i] if i < len(hist) else (hist[-1] if hist else []))
+            for i, (t, _) in enumerate(inner.way_maps)
+        ]
         return self
 
     # ------------------------------------------------------------------

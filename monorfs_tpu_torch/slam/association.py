@@ -6,13 +6,19 @@ A beam element is a partial association: each measurement so far maps to
 clutter or to a distinct landmark (injective through a packed used-set
 bitmask). Summing the top-B assignment scores gives the truncated set
 likelihood; with B above the number of reachable assignments it is exact.
+The whole computation is differentiable in the pose through the plain beam
+(the sort that selects each step's top-B carries the gradient, as lax.top_k
+does), so torch.autograd gives the smoother its gradients and Hessians.
 
 The used-set words are uint32 in JAX. Here they are int32 with the same bit
 patterns: bit 31 is the sign bit, and `&`, `|` and `!= 0` behave exactly as
 on uint32."""
 
+import collections
+
 import torch
 
+from ..gm import gaussian
 from ..gm.mixture import topk_stable
 
 NEG = -1.0e30
@@ -60,39 +66,103 @@ def beam_scan(base, opt_delta, word_k, bit_k, beam_width, n_words):
     """Sequential beam over measurements, batched over a leading particle
     axis. base [P], opt_delta [P, M, C+1], word_k / bit_k [P, M, C] int32.
     Returns the final top-`beam_width` scores [P, B] (NEG = empty slot),
-    sorted descending with ties to the lower flat index."""
+    sorted descending with ties to the lower flat index.
+
+    Differentiable in base and opt_delta: each kept score is base plus the
+    option deltas along its path, so with a gradient wanted the scan runs
+    without autograd, records every kept hypothesis' choices, and the
+    scores carry the gradient of base + sum(picked deltas) -- what autograd
+    through the scan's top-B selections gives (the selection is piecewise
+    constant), at the cost of one gather instead of M steps of graph.
+    On CUDA tensors the scan is one replay of a CUDA graph (_scan_graphed)."""
+    scan = _scan_graphed if opt_delta.device.type == "cuda" else _scan
+    if torch.is_grad_enabled() and (base.requires_grad or opt_delta.requires_grad):
+        with torch.no_grad():
+            scores, path = scan(base, opt_delta, word_k, bit_k, beam_width, n_words, paths=True)
+        picked = torch.gather(opt_delta[:, None].expand(-1, beam_width, -1, -1), 3, path[..., None])
+        tied = base[:, None] + torch.sum(picked[..., 0], dim=-1)
+        return scores + (tied - tied.detach())  # the scan's values, the paths' gradient
+    return scan(base, opt_delta, word_k, bit_k, beam_width, n_words)
+
+
+def _scan(base, opt_delta, word_k, bit_k, beam_width, n_words, paths=False):
+    """The beam scan proper (see beam_scan); with paths=True it also returns
+    each kept hypothesis' option index at every step, [P, B, M]."""
     p, m, c1 = opt_delta.shape
-    c = c1 - 1
     b = beam_width
     dev = opt_delta.device
     scores = torch.full((p, b), NEG, dtype=opt_delta.dtype, device=dev)
     scores[:, 0] = base
     words = torch.zeros((p, b, n_words), dtype=torch.int32, device=dev)
-    cand_j = torch.arange(1, c + 1, device=dev)
+    # a candidate whose word lies outside the used set is never used: its bit
+    # reads as 0
+    in_range = (word_k >= 0) & (word_k < n_words)
+    widx = torch.where(in_range, word_k, 0).long()
+    bits = torch.where(in_range, bit_k, 0)
+    w_iota = torch.arange(n_words, device=dev)
+    srcs, choices = [], []
     for step in range(m):
         dk, wk, bk = opt_delta[:, step], word_k[:, step], bit_k[:, step]
         # membership: each candidate's word of each hypothesis, AND its bit
-        in_range = (wk >= 0) & (wk < n_words)
-        widx = torch.where(in_range, wk, torch.zeros_like(wk)).long()
-        uw = torch.gather(words, 2, widx[:, None, :].expand(p, b, c))
-        uw = torch.where(in_range[:, None, :], uw, torch.zeros_like(uw))
-        used = (uw & bk[:, None, :]) != 0  # [P, B, C]
-        neg = torch.full(used.shape, NEG, dtype=dk.dtype, device=dev)
-        land = scores[:, :, None] + torch.where(used, neg, dk[:, None, 1:])
-        clut = scores[:, :, None] + dk[:, None, 0:1]
-        cand = torch.cat([clut, land], dim=2).reshape(p, b * c1)
-        scores, flat = topk_stable(cand, b)
+        uw = torch.gather(words, 2, widx[:, None, step].expand(-1, b, -1))
+        used = (uw & bits[:, None, step]) != 0  # [P, B, C]
+        opts = torch.cat([dk[:, None, 0:1].expand(-1, b, 1), torch.where(used, NEG, dk[:, None, 1:])], 2)
+        vals, order = torch.sort((scores[:, :, None] + opts).reshape(p, b * c1), dim=-1,
+                                 descending=True, stable=True)
+        scores, flat = vals[:, :b], order[:, :b]
         src = torch.div(flat, c1, rounding_mode="floor")
         choice = flat % c1  # 0 = clutter, 1 + j = candidate j
-        onehot = choice[:, :, None] == cand_j  # [P, B, C]
-        pw = torch.sum(torch.where(onehot, wk[:, None, :], torch.zeros_like(wk[:, None, :])), dim=2)
-        pb = torch.sum(torch.where(onehot, bk[:, None, :], torch.zeros_like(bk[:, None, :])), dim=2)
-        g = torch.gather(words, 1, src[:, :, None].expand(p, b, n_words))
-        w_iota = torch.arange(n_words, device=dev)
-        words = g | torch.where(
-            pw[:, :, None] == w_iota, pb[:, :, None], torch.zeros_like(g)
-        ).to(torch.int32)
-    return scores
+        # the picked candidate's (word, bit); clutter adds nothing
+        pick = torch.clamp(choice - 1, min=0)
+        pw = torch.where(choice > 0, torch.gather(wk, 1, pick), 0)
+        pb = torch.where(choice > 0, torch.gather(bk, 1, pick), 0)
+        g = torch.gather(words, 1, src[:, :, None].expand(-1, -1, n_words))
+        words = g | torch.where(pw[:, :, None] == w_iota, pb[:, :, None], 0)
+        if paths:
+            srcs.append(src)
+            choices.append(choice)
+    if not paths:
+        return scores
+    slot, path = torch.arange(b, device=dev).expand(p, b), [None] * m
+    for step in range(m - 1, -1, -1):  # walk each kept hypothesis back to the start
+        path[step] = torch.gather(choices[step], 1, slot)
+        slot = torch.gather(srcs[step], 1, slot)
+    return scores, torch.stack(path, dim=-1)
+
+
+# CUDA graphs of _scan, by device, dtype, shape, width, words and paths; past
+# GRAPH_CAP shapes the least recently used goes, with its memory pool (a
+# smoother run replays a few shapes).
+_GRAPHS = collections.OrderedDict()
+GRAPH_CAP = 32
+
+
+def _scan_graphed(base, opt_delta, word_k, bit_k, beam_width, n_words, paths=False):
+    """_scan on CUDA tensors as one replay of a CUDA graph captured at the
+    first call of each shape: eager, the scan is ~20 small launches a step
+    and bound by the host. Same kernels, same results."""
+    key = (opt_delta.device, opt_delta.dtype, tuple(opt_delta.shape), beam_width, n_words, paths)
+    if key in _GRAPHS:
+        _GRAPHS.move_to_end(key)
+    else:
+        with torch.cuda.device(opt_delta.device):
+            static = [x.clone() for x in (base, opt_delta, word_k, bit_k)]
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):  # warm-up outside the capture
+                _scan(*static, beam_width, n_words, paths)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = _scan(*static, beam_width, n_words, paths)
+        _GRAPHS[key] = graph, static, out
+        if len(_GRAPHS) > GRAPH_CAP:
+            _GRAPHS.popitem(last=False)
+    graph, static, out = _GRAPHS[key]
+    for dst, src in zip(static, (base, opt_delta, word_k, bit_k)):
+        dst.copy_(src)
+    graph.replay()
+    return tuple(o.clone() for o in out) if paths else out.clone()
 
 
 def logsumexp_scores(scores):
@@ -111,3 +181,72 @@ def set_log_likelihood(ll, log_miss, log_clutter, n_mask, m_mask, beam_width,
         ll, log_miss, log_clutter, n_mask, m_mask, max_candidates
     )
     return logsumexp_scores(beam_scan(base, od, wk, bk, beam_width, n_words))
+
+
+def association_matrices(model, pose, map_means, meas_cov, pd):
+    """Association pieces of the quasi variant (SetLogLikeMatrix,
+    PHDNavigator.cs:567-635: constant PD; the filter's fuzzy-visibility
+    variant is phd.weight_inputs). pose [..., S] broadcasts against
+    map_means [..., N, 3] through a singleton landmark axis. Returns
+    (mu [..., N, D], log_pd [..., N], log_miss [..., N], r_inv [D, D], logmult)."""
+    mu = model.measure(model.params, pose[..., None, :], map_means)
+    pdv = torch.as_tensor(pd, dtype=mu.dtype, device=mu.device).expand(mu.shape[:-1])
+    pdv = torch.clamp(pdv, 1e-30, 1.0 - 1e-7)
+    return mu, torch.log(pdv), torch.log1p(-pdv), gaussian.inv(meas_cov), gaussian.log_multiplier(meas_cov)
+
+
+def likelihood_matrix(mu, log_pd, logmult, r_inv, z, gate):
+    """ll[..., i, k] = log PD_i + log mult - 0.5 d^2 where the Mahalanobis
+    distance d < gate, else NEG (PHDNavigator.cs:433-442). mu [..., N, D],
+    z [..., M, D]."""
+    diff = z[..., None, :, :] - mu[..., :, None, :]  # [..., N, M, D]
+    d2 = torch.einsum("...nmd,de,...nme->...nm", diff, r_inv, diff)
+    ll = log_pd[..., None] + logmult - 0.5 * d2
+    return torch.where(d2 < gate * gate, ll, torch.full_like(ll, NEG))
+
+
+def quasi_set_log_likelihood(model, meas_cov, pd, log_clutter, pose, map_means, map_mask, z,
+                             z_mask, beam_width=200, lm_cov=None, beam=None):
+    """QuasiSetLogLikelihood (PHDNavigator.cs:526-713): constant PD, gate
+    12, visibility ignored; batched over the leading dims, which broadcast:
+    pose [..., S], map_means [..., N, 3], map_mask [..., N], z [..., M, D],
+    z_mask [..., M], lm_cov [..., N, 3, 3]. Returns [...].
+
+    With `lm_cov` the innovation covariance of landmark i is
+    S_i = J_i P_i J_i^T + R, and a two-sided gate (0 <= d^2 < 144) keeps an
+    indefinite S from scoring astronomically high.
+
+    beam: the beam scan to use. None takes beam_kernel.beam_scan_batch for
+    a float32 call that needs no gradient (one launch for every row; the
+    plain version for CPU tensors) and the plain beam otherwise; gradients
+    and Hessians always go through the plain beam under torch.autograd."""
+    lead = [pose.shape[:-1], map_means.shape[:-2], map_mask.shape[:-1], z.shape[:-2],
+            z_mask.shape[:-1]] + ([lm_cov.shape[:-3]] if lm_cov is not None else [])
+    batch = torch.broadcast_shapes(*lead)
+    n, m = map_means.shape[-2], z.shape[-2]
+    pose = pose.expand(batch + pose.shape[-1:]).reshape(-1, pose.shape[-1])
+    map_means = map_means.expand(batch + (n, 3)).reshape(-1, n, 3)
+    map_mask = map_mask.expand(batch + (n,)).reshape(-1, n)
+    z = z.expand(batch + z.shape[-2:]).reshape(-1, m, z.shape[-1])
+    z_mask = z_mask.expand(batch + (m,)).reshape(-1, m)
+    mu, log_pd, log_miss, r_inv, logmult = association_matrices(model, pose, map_means, meas_cov, pd)
+    if lm_cov is not None:
+        lm_cov = lm_cov.expand(batch + (n, 3, 3)).reshape(-1, n, 3, 3)
+        jl = model.jac_landmark(model.params, pose[:, None, :], map_means)
+        jl = jl.expand(mu.shape + (3,))  # [P, N, D, 3]
+        s = torch.einsum("pnda,pnab,pneb->pnde", jl, lm_cov, jl) + meas_cov
+        diff = z[:, None, :, :] - mu[:, :, None, :]
+        d2 = torch.einsum("pnmd,pnde,pnme->pnm", diff, gaussian.inv(s), diff)
+        ll = log_pd[..., None] + gaussian.log_multiplier(s)[..., None] - 0.5 * d2
+        ll = torch.where((d2 >= 0.0) & (d2 < 144.0), ll, torch.full_like(ll, NEG))
+    else:
+        ll = likelihood_matrix(mu, log_pd, logmult, r_inv, z, 12.0)
+    ll = torch.where(z_mask[:, None, :], ll, torch.full_like(ll, NEG))
+    if beam is None:
+        value_only = not (torch.is_grad_enabled() and pose.requires_grad)
+        if ll.dtype == torch.float32 and value_only:
+            from .beam_kernel import beam_scan_batch as beam
+        else:
+            beam = beam_scan
+    base, od, wk, bk, n_words = prepare_options(ll, log_miss, log_clutter, map_mask, z_mask)
+    return logsumexp_scores(beam(base, od, wk, bk, beam_width, n_words)).reshape(batch)

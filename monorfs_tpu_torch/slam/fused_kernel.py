@@ -40,8 +40,9 @@ _PAIRS = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
 
 
 def fused_stage_plain(model, cfg, params, pose, maps: SGM, z, z_mask):
-    """pose [P, S]; maps leaves [P, K0]; z [M, D]; z_mask [M] bool.
-    Returns (predicted SGM [P, K0+M], corrected SGM [P, K0])."""
+    """pose [P, S]; maps leaves [P, K0]; z [M, D]; z_mask bool, [M] for every
+    particle or [P, M] one row per particle. Returns (predicted SGM
+    [P, K0+M], corrected SGM [P, K0])."""
     p = pose.shape[0]
     k0 = maps.capacity
     m = z.shape[0]
@@ -53,7 +54,7 @@ def fused_stage_plain(model, cfg, params, pose, maps: SGM, z, z_mask):
     zero = torch.zeros((), dtype=dt, device=dev)
 
     zl = [z[:, i][None, :] for i in range(model.meas_dim)]  # D x [1, M]
-    z_live = z_mask[None, :]
+    z_live = z_mask if z_mask.dim() == 2 else z_mask[None, :]
 
     # ---- births (PredictConditional, PHDNavigator.cs:793-819) --------------
     cand = [c.expand(p, m) for c in model.to_map_soa(mp, pose, zl)]  # 3 x [P, M]
@@ -289,14 +290,15 @@ def _workspace(p, k0, m, device):
 def _launcher():
     return _build.function(
         "fused_stage_launch",
-        [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float] * 8
-        + [ctypes.c_void_p] * 2,
+        [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+        + [ctypes.c_int] * 5 + [ctypes.c_float] * 8 + [ctypes.c_void_p] * 2,
     )
 
 
 def fused_stage(model, cfg, params, pose, maps: SGM, z, z_mask, packed=None, phase_clock=None):
     """Births + correct + prune for all particles; see the module note.
-    packed: pack_params(model, params) on the device, when the caller keeps
+    z_mask: [M], or [P, M] with one measurement mask per particle (block p
+    reads row p; the smoother's leave-block-out passes). packed: pack_params(model, params) on the device, when the caller keeps
     it across calls. phase_clock: an int64 [P, len(PHASES) + 1] CUDA tensor
     that receives each block's clock64() at entry and after each phase of
     PHASES (a measurement; it adds a barrier per phase). Returns (predicted
@@ -316,7 +318,7 @@ def fused_stage(model, cfg, params, pose, maps: SGM, z, z_mask, packed=None, pha
         raise ValueError(f"map capacity {k0} != max_components {cfg.max_components}")
     dev = pose.device
     checks = [("pose", pose, torch.float32, (p, s)), ("z", z, torch.float32, (m, d)),
-              ("z_mask", z_mask, torch.bool, (m,))]
+              ("z_mask", z_mask, torch.bool, (p, m) if z_mask.dim() == 2 else (m,))]
     checks += [(f"maps.{n}", leaf, torch.float32, (p, k0)) for n, leaf in zip(SGM._fields, maps)]
     for name, t, dt, shape in checks:
         if t.device != dev or t.dtype != dt or tuple(t.shape) != shape:
@@ -348,7 +350,7 @@ def fused_stage(model, cfg, params, pose, maps: SGM, z, z_mask, packed=None, pha
         stream = torch.cuda.current_stream().cuda_stream
         err = _launcher()(
             d, prm.data_ptr(), pose_c.data_ptr(), maps_in.data_ptr(), z_c.data_ptr(),
-            zm.data_ptr(), pred.data_ptr(), cor.data_ptr(), work,
+            zm.data_ptr(), m if z_mask.dim() == 2 else 0, pred.data_ptr(), cor.data_ptr(), work,
             p, k0, m, cfg.gate_top, cfg.merge_rounds, *mvals, clk, stream,
         )
     _build.check(err, "fused_stage_launch")

@@ -132,14 +132,21 @@ def predict_poses(model, params: PHDParams, state: PHDState, odometry, normals,
 # for the fused stage's kernel semantics)
 # =============================================================================
 
+def _rows(z_mask):
+    """A measurement mask as rows that broadcast over particles: [M] -> [1, M];
+    [P, M] (one mask per particle) stays."""
+    return z_mask if z_mask.dim() == 2 else z_mask[None, :]
+
+
 def _births_soa(model, params, pose, maps: SGM, zl, z_mask):
     """Birth components at unexplored back-projections (PredictConditional,
     PHDNavigator.cs:793-819 + Explored :956-959), for all particles.
 
-    pose [P, S]; maps leaves [P, K]; zl: D-list of [M]. Returns SGM [P, M]."""
+    pose [P, S]; maps leaves [P, K]; zl: D-list of [M]; z_mask [M] or [P, M].
+    Returns SGM [P, M]."""
     cand = model.to_map_soa(model.params, pose, [zi[None, :] for zi in zl])  # 3 x [P, M]
     density = mixture.evaluate_many_soa(maps, cand, radius=3.0 * params.density_radius)
-    unexplored = z_mask[None, :] & (density < params.exploration_threshold)
+    unexplored = _rows(z_mask) & (density < params.exploration_threshold)
     logw = torch.where(
         unexplored, torch.log(params.birth_weight), torch.full_like(density, DEAD)
     )
@@ -159,8 +166,8 @@ def _correct_prune_soa(model, cfg, params, pose, pred: SGM, zl, z_mask):
     4. the EKF mean / covariance update for survivors only;
     5. greedy weight-ordered Mahalanobis merge (:930-948).
 
-    pose [P, S]; pred leaves [P, K']; zl: D-list of [M]. Returns SGM
-    [P, max_components]."""
+    pose [P, S]; pred leaves [P, K']; zl: D-list of [M]; z_mask [M] or
+    [P, M]. Returns SGM [P, max_components]."""
     p, kp = pred.logw.shape
     k_out = cfg.max_components
     m = zl[0].shape[0]
@@ -199,7 +206,7 @@ def _correct_prune_soa(model, cfg, params, pose, pred: SGM, zl, z_mask):
     diffp = [b[:, :, None] - mi[:, None, :] for b, mi in zip(backproj, mean)]
     dist2 = sum(dd * dd for dd in diffp)
     r2 = params.density_radius * params.density_radius
-    in_gate = (dist2 <= r2) & alive[:, None, :] & z_mask[None, :, None]
+    in_gate = (dist2 <= r2) & alive[:, None, :] & _rows(z_mask)[:, :, None]
     innov = [zi[None, :, None] - hi[:, None, :] for zi, hi in zip(zl, h)]
     q_log = s_logmult[:, None, :] - 0.5 * smallmat.quadform(
         innov, [[e[:, None, :] for e in row] for row in s_inv]
@@ -393,7 +400,10 @@ def make_slam_step(model, cfg: PHDConfig, slam: bool = True, kernels=None):
     motion_normals [P, T], resample_u [], true_pose [S] = None) -> state.
 
     slam=False runs mapping-only: poses snap to `true_pose`, particle weights
-    stay and best is 0 (PHDNavigator.cs:192-208, :297-300, :334-336).
+    stay and best is 0 (PHDNavigator.cs:192-208, :297-300, :334-336). The
+    draws are not read, and z_mask may be [P, M]: one measurement mask per
+    particle, as the JAX step receives it under the smoother's vmap over
+    leave-block-out passes (loopy.cavity_maps).
 
     kernels chooses the births + correct + prune stage and the beam:
       None   float32 state -> fused_kernel.fused_stage and
@@ -416,6 +426,8 @@ def make_slam_step(model, cfg: PHDConfig, slam: bool = True, kernels=None):
         with record_function("phd.predict"):
             state = predict_poses(model, params, state, odometry, motion_normals, slam, true_pose)
             if cfg.meas_compact and cfg.meas_compact < cfg.max_measurements:
+                if z_mask.dim() != 1:
+                    raise ValueError("measurement compaction takes one mask for every particle")
                 order = live_first(z_mask, cfg.meas_compact)
                 z, z_mask = z[order], z_mask[order]
         with record_function("phd.fused_stage"):

@@ -13,6 +13,7 @@ from monorfs_tpu.models import get as get_model
 from monorfs_tpu.slam import fused_pallas
 from monorfs_tpu.slam import phd as jphd
 
+from monorfs_tpu_torch.gm import mixture
 from monorfs_tpu_torch.gm.mixture import SGM
 from monorfs_tpu_torch.kernel_cases import fused_state
 from monorfs_tpu_torch.models import PRM3D
@@ -206,3 +207,53 @@ def test_fused_plain_k600_matches_pallas():
     (jpred, jcor), (tpred, tcor), _ = _both_on_case("PRM3D", fields, (17, 2, 600, 48, 40))
     _assert_pred_close(jpred, tpred)
     assert_sets_close(jcor, tcor, 2)
+
+
+def _xla_semantics(model, cfg, params, pose, maps, z, z_mask):
+    """The float64 path's births + correct + prune (phd._births_soa +
+    _correct_prune_soa), as the step runs them."""
+    zl = [z[:, i] for i in range(model.meas_dim)]
+    births = phd._births_soa(model, params, pose, maps, zl, z_mask)
+    return phd._correct_prune_soa(model, cfg, params, pose, mixture.concat_soa(maps, births), zl, z_mask)
+
+
+@pytest.mark.parametrize("semantics", ["kernel", "xla"])
+@pytest.mark.parametrize("model_name", ["PRM3D", "Linear2D"])
+def test_fused_mask_per_particle(semantics, model_name):
+    """A [P, M] measurement mask (the smoother's leave-block-out passes as
+    particles) equals P separate calls with each particle's [M] mask, and a
+    [P, M] mask of identical rows equals the [M] call, for the kernel's
+    semantics (fused_stage_plain) and the XLA path's (float64)."""
+    from monorfs_tpu_torch.config import Config
+    from monorfs_tpu_torch.models import get as tget
+
+    p, k0, m = 5, 32, 12
+    dtype = torch.float32 if semantics == "kernel" else torch.float64
+    cfg = phd.PHDConfig(num_particles=p, max_components=k0, max_measurements=m, gate_top=6,
+                        merge_rounds=4)
+    pose, leaves, z, z_mask = fused_state(31, p, k0, m, 10, model=model_name)
+    pose = np.repeat(pose[:1], p, axis=0)  # every pass at the same pose, as the smoother snaps them
+    c = Config()
+    c.set_model_defaults(model_name)
+    params = c.phd_params(dtype, "cpu")
+    model = tget(model_name)
+    t = lambda x: torch.tensor(np.asarray(x), dtype=dtype)  # noqa: E731
+    maps, pose, z = SGM(*[t(x) for x in leaves]), t(pose), t(z)
+    z_mask = torch.tensor(z_mask)
+    rows = z_mask[None, :] & (torch.arange(m)[None, :] % p != torch.arange(p)[:, None])  # [P, M]
+    if semantics == "kernel":
+        run = lambda pp, mm, zm: fused_kernel.fused_stage(model, cfg, params, pp, mm, z, zm)  # noqa: E731
+    else:
+        run = lambda pp, mm, zm: (_xla_semantics(model, cfg, params, pp, mm, z, zm),)  # noqa: E731
+    batched = run(pose, maps, rows)
+    for i in range(p):
+        one = run(pose[i : i + 1], SGM(*[leaf[i : i + 1] for leaf in maps]), rows[i])
+        for out_b, out_1 in zip(batched, one):
+            for a, b in zip(out_b, out_1):
+                torch.testing.assert_close(a[i : i + 1], b, rtol=0, atol=0)
+    shared = run(pose, maps, z_mask)
+    same_rows = run(pose, maps, z_mask.expand(p, m))
+    for out_s, out_r in zip(shared, same_rows):
+        for a, b in zip(out_s, out_r):
+            assert torch.equal(a, b)
+    assert not torch.equal(batched[-1].logw, shared[-1].logw)  # the masks mattered

@@ -168,12 +168,18 @@ def test_in_band_mode_switch():
 
 @pytest.mark.parametrize("algorithm", ["loopy"])
 def test_unported_algorithms_raise(algorithm):
+    """Every algorithm is ported now (the smoother has its own file,
+    test_torch_loopynav.py); what stays unported is the Kinect input, which
+    every algorithm refuses, and an unknown algorithm raises ValueError."""
     world = World.from_file("assets/linear2d.world")
     cfg = _configs()[1]
+    assert Simulation(cfg, world, [], algorithm=algorithm, device="cpu").algorithm == algorithm
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Simulation(cfg, world, [], algorithm=algorithm, device="cpu")
+        Simulation(cfg, world, [], algorithm=algorithm, kinect_source=object(), device="cpu")
     with pytest.raises(NotImplementedError):
-        cli.main(["-f", "assets/linear2d.world", "-a", algorithm, "--device", "cpu"])
+        cli.main(["-f", "assets/tum_real", "-i", "kinect", "-a", algorithm, "--device", "cpu"])
+    with pytest.raises(ValueError):
+        Simulation(cfg, world, [], algorithm=algorithm + "x", device="cpu")
 
 
 def test_unported_inputs_raise():

@@ -2,16 +2,24 @@
 inputs go through monorfs_tpu (the reference, JAX on the CPU) and
 monorfs_tpu_torch (device='cpu', the plain PyTorch paths)."""
 
+import dataclasses
+import functools
+
 import numpy as np
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from monorfs_tpu.config import Config as JConfig
 from monorfs_tpu.gm import mixture as jmixture
+from monorfs_tpu.slam import loopy as jloopy
+from monorfs_tpu.slam.loopynav import LoopyPHDNavigator as JNavigator
 
 from monorfs_tpu_torch import convert
 from monorfs_tpu_torch.gm.mixture import SGM
+from monorfs_tpu_torch.models import get as tget
+from monorfs_tpu_torch.slam.loopynav import LoopyPHDNavigator
 
 DEAD = -1.0e30
 
@@ -180,3 +188,176 @@ def jax_scan_draws(key, frames, n_landmarks, meas_dim, odo_dim, max_clutter, clu
         out["clutter_draw"].append(np_(jax.random.poisson(kcount, clutter_count)))
         out["clutter_u"].append(np_(jax.random.uniform(kclutter, (max_clutter, meas_dim))))
     return {k: torch.tensor(np.stack(v)) for k, v in out.items()}
+
+
+# -- smoother -----------------------------------------------------------------
+
+def loopy_problem(name, frames, seed=4):
+    """A small smoothing problem on model `name` (Linear2D or PRM3D): the
+    true path, odometry readings with noise, measurement lists (detections
+    with noise, plus one clutter point a frame) and a jittered initial
+    estimate. Returns (JAX model, JAX Config, truth, readings, measurements,
+    estimate), as tests/test_loopy.py and tests/test_loopy3d.py build them."""
+    from monorfs_tpu import models as jmodels
+
+    rng = np.random.default_rng(seed)
+    jm = jmodels.get(name)
+    cfg = JConfig()
+    if name == "PRM3D":
+        cfg.motion_covariance = np.diag([4e-4] * 3 + [1e-4] * 3) / cfg.measure_elapsed ** 2
+        lms = np.column_stack([rng.uniform(-0.5, 1.0, 10), rng.uniform(-0.5, 0.5, 10),
+                               rng.uniform(0.8, 1.5, 10)])
+        step = np.array([0.06, 0, 0, 0, 0, 0.0])
+        link_std = np.concatenate([np.full(3, 0.02), np.full(3, 0.01)])
+        truth = [np.array([0, 0, 0, 1, 0, 0, 0.0])]
+        noise = np.array([1.0, 1.0, 0.01])
+        jitter = np.concatenate([np.full(3, 0.05), np.full(3, 0.015)])
+    else:
+        cfg.set_linear2d_defaults()
+        cfg.motion_covariance = np.diag([0.05 ** 2, 0.05 ** 2]) / cfg.measure_elapsed ** 2
+        cfg.merge_threshold = 3.0
+        cfg.min_weight = 0.01
+        lms = np.column_stack([rng.uniform(-1.0, 2.5, 10), rng.uniform(-1.0, 1.5, 10), np.zeros(10)])
+        step = np.array([0.12, 0.03])
+        link_std = np.full(2, 0.05)
+        truth = [np.zeros(2)]
+        noise = np.full(2, 0.02)
+        jitter = np.full(2, 0.06)
+    readings = [np.zeros_like(step)]
+    for _ in range(1, frames):
+        truth.append(np.asarray(jm.pose.add_odometry(jnp.asarray(truth[-1]), jnp.asarray(step))))
+        readings.append(step + rng.normal(size=step.shape) * link_std)
+    measurements = []
+    for t in range(frames):
+        z = np.asarray(jm.measure(jm.params, jnp.asarray(truth[t])[None, :], jnp.asarray(lms)))
+        vis = np.asarray(jm.visible(jm.params, jnp.asarray(z)))
+        zs = [zi + rng.normal(size=zi.shape) * noise for zi, v in zip(z, vis) if v and rng.random() < 0.9]
+        zs.append(zs[0] + rng.normal(size=zs[0].shape) * noise * 30 if zs else np.zeros(jm.meas_dim))
+        measurements.append(zs)
+    tang = rng.normal(size=(frames, step.size)) * jitter
+    tang[0] = 0.0
+    est = np.stack([np.asarray(jm.pose.add(jnp.asarray(p), jnp.asarray(d))) for p, d in zip(truth, tang)])
+    return jm, cfg, np.array(truth), readings, measurements, est
+
+
+def loopy_configs(frames, max_meas, **over):
+    """(JAX LoopyConfig, port LoopyConfig) at a test size: 4 blocks, 8-slot
+    jmaps and beams, 24-component inner maps, 2 x 2 gradient ascent."""
+    from monorfs_tpu.slam import phd as jphd
+    from monorfs_tpu_torch.slam import loopy as tloopy
+    from monorfs_tpu_torch.slam import phd as tphd
+
+    inner = dict(num_particles=1, max_components=24, max_measurements=max_meas, gate_top=4,
+                 estimate_cap=8, beam_width=8)
+    kw = dict(max_nodes=frames, max_meas=max_meas, mix_cap=4, blocks=4, ga_iters=2, ga_steps=2,
+              jmap_cap=8, beam_width=8, refit_seeds=2, **over)
+    return (jloopy.LoopyConfig(inner=jphd.PHDConfig(**inner), **kw),
+            tloopy.LoopyConfig(inner=tphd.PHDConfig(**inner), kernels=False, **kw))
+
+
+def _tol(dtype):
+    """The smoother tests' tolerances (see tests/test_torch_loopy.py)."""
+    return dict(rtol=1e-8, atol=1e-8) if dtype == "float64" else dict(rtol=1e-3, atol=5e-3)
+
+
+def loopy_close(got, want, dtype, what=""):
+    got = got.detach().cpu().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    np.testing.assert_allclose(got, np.asarray(want), err_msg=what, **_tol(dtype))
+
+
+def state_close(got, want, dtype):
+    for name in want._fields:
+        a, b = getattr(got, name), getattr(want, name)
+        if name == "node_mask":
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        else:
+            loopy_close(a, b, dtype, name)
+
+
+def maps_close(got, want, dtype):
+    """The same live components frame by frame, as sets: equal-weight
+    components may sit in other slots (float32 merge order)."""
+    k = got.logw.shape[-1]
+    lw, mu, cv = (x.numpy().reshape((-1, k) + x.shape[got.logw.dim():]) for x in (got.logw, got.mean, got.cov))
+    wl, wm, wc = (np.asarray(x).reshape(y.shape) for x, y in zip((want.logw, want.mean, want.cov), (lw, mu, cv)))
+    for f in range(lw.shape[0]):
+        a, b = lw[f] > -1e29, wl[f] > -1e29
+        assert a.sum() == b.sum(), (f, a.sum(), b.sum())
+        loopy_close(np.sort(lw[f][a]), np.sort(wl[f][b]), dtype, "logw")
+        used = np.zeros(b.sum(), bool)
+        for m, c in zip(mu[f][a], cv[f][a]):
+            j = int(np.argmin(np.linalg.norm(wm[f][b] - m, axis=-1) + np.where(used, 1e9, 0.0)))
+            used[j] = True
+            loopy_close(m, wm[f][b][j], dtype, "mean")
+            loopy_close(c, wc[f][b][j], dtype, "cov")
+
+
+class LoopyCase:
+    """Both packages' navigators over the same smoothing problem, and the
+    JAX results of every function the smoother tests compare, each computed
+    (and compiled) when first asked for."""
+
+    def __init__(self, name, frames, dtype):
+        jm, jc, self.truth, readings, meas, est = loopy_problem(name, frames)
+        self.name, self.dtype, self.jm, self.tm = name, dtype, jm, tget(name)
+        max_meas = max(len(zs) for zs in meas)
+        jcfg, tcfg = loopy_configs(frames, max_meas)
+        npd, tpd = getattr(np, dtype), getattr(torch, dtype)
+        self.jnav = JNavigator(jm, jc, est, readings, meas, max_meas=max_meas, dtype=npd, loopy_cfg=jcfg)
+        self.tnav = LoopyPHDNavigator(self.tm, convert.config(dataclasses.asdict(jc)), est, readings,
+                                      meas, max_meas=max_meas, dtype=tpd, loopy_cfg=tcfg, device="cpu")
+        self.jcfg, self.tcfg = jcfg, tcfg
+        j, t = self.jnav, self.tnav
+        self.jargs = (j.params, j.state.lp, j.state.node_mask, j.odometry, j.z, j.z_mask, j.motion_cov,
+                      j.grad_clip, j.grad_rate)
+        self.targs = (t.params, t.state.lp, t.state.node_mask, t.odometry, t.z, t.z_mask, t.motion_cov,
+                      t.grad_clip, t.grad_rate)
+        self.frames, self.npd = frames, npd
+
+    @functools.cached_property
+    def _jrefit(self):
+        return jax.jit(jloopy.make_sequential_refit(self.jm, self.jcfg))
+
+    @functools.cached_property
+    def jtraj(self):
+        return np.asarray(self._jrefit(*self.jargs))
+
+    @functools.cached_property
+    def jtraj_back(self):
+        params, lp, node_mask, odometry, z, z_mask, *rest = self.jargs
+        lp_r, odo_r, z_r, zm_r = jloopy.reverse_refit_inputs(lp, odometry, z, z_mask)
+        return np.flip(np.asarray(self._jrefit(params, lp_r, node_mask, odo_r, z_r, zm_r, *rest)), 0)
+
+    @functools.cached_property
+    def jstate(self):
+        return jloopy.init_state(self.jm, self.jcfg, self.jtraj, self.frames, self.npd)
+
+    @functools.cached_property
+    def jmapped(self):
+        """One map sweep after the refit: a state with real map messages."""
+        j, jm, jcfg = self.jnav, self.jm, self.jcfg
+        temp = jnp.asarray(0.0, self.npd)
+        return jax.jit(lambda s: jloopy.map_sweep(
+            jm, jcfg, j.params, s, j.z, j.z_mask, temp, j.grad_clip, j.grad_rate))(self.jstate)
+
+    @functools.cached_property
+    def jfwd(self):
+        j = self.jnav
+        return jax.jit(lambda s: jloopy.forward_sweep(self.jm, s, j.odometry, j.motion_cov))(self.jmapped)
+
+    @functools.cached_property
+    def jback(self):
+        j = self.jnav
+        return jax.jit(lambda s: jloopy.backward_sweep(self.jm, s, j.odometry, j.motion_cov))(self.jfwd)
+
+    def jobjective(self, state):
+        return [float(x) for x in self.jnav._objective(state)]
+
+    def jfinal_map(self, state):
+        j = self.jnav
+        return jax.jit(lambda s: jloopy.final_map(self.jm, self.jcfg, j.params, s, j.z, j.z_mask,
+                                                  history=True))(state)
+
+    def port_state(self, jstate):
+        """The JAX LoopyState as the port's (convert.loopy_state)."""
+        return convert.loopy_state(fields(jstate), dtype=getattr(torch, self.dtype), device="cpu")
