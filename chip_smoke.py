@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Smoke run of the PyTorch/CUDA port (monorfs_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--parent DIR] [--phases kernels,bench,sync,cli,graph,loopy]
+    python3 chip_smoke.py [--parent DIR] [--phases kernels,bench,sync,cli,graph,loopy,kinect]
 
 Phases, one line each; any failure exits non-zero:
   1. device, `nvidia-smi` name and power limit, kernel build (nvcc, sm_90a);
@@ -47,16 +47,34 @@ Phases, one line each; any failure exits non-zero:
      version at the smoother's value-only shape (P = J*M = 1056 seeds, B=32,
      C=8, one word, 33 steps), the fused kernel with one measurement mask
      per particle ([8, M]: the leave-block-out passes) and with P=1 against
-     its plain version to phase 3's tolerances, each timed; then the chap5
-     s2 workflow through cli.main as experiments/run_experiments.py runs it
-     (-a phd -p 50 on linear2d.world + mov2d.in with chap5-default2d.cfg,
-     the odometry replay of that recording, then `-i record -a loopy`
-     twice, with identical ATE and OSPA under the limits below), a float64
-     `-a loopy` run on the card (90 frames), one 3D `-a loopy` run over
-     phase 6's PHD recording (cut to fit the phase in 5 minutes), both
-     kernels launched over the float32 runs, and the host synchronisations
-     per node of the smoother.
-Nothing of the earlier phases was cut: phase 4 still runs all 300 frames.
+     its plain version to phase 3's tolerances, each timed; then `-i record
+     -a loopy` over the JAX package's own chap5 s2 odometry recording
+     (tests/data/chap5_s2_odometry_jax.zip) twice, identical and within
+     LOOPY_JAX_TOL of the JAX package's result on it; the chap5 s2 workflow
+     through cli.main as experiments/run_experiments.py runs it (-a phd -p 50
+     on linear2d.world + mov2d.in with chap5-default2d.cfg, the odometry
+     replay of that recording, then `-i record -a loopy`) once, under the
+     limits below; a float64 `-a loopy` run on the card (90 frames); one 3D
+     `-a loopy` run over phase 6's PHD recording (cut to LOOPY_BUDGET_S);
+     both kernels launched over the float32 runs, and the host
+     synchronisations per node of the smoother.
+  9. `kinect`: the RGB-D input. The beam kernel bit-identical to its plain
+     version at the path's shape (P=2000, B=200, C=8, M=64, 4 words), timed;
+     convert_tum of assets/tum_real (the PNG decoder that ran printed);
+     experiments_kinect.k6real twice (`-a isam2` float64 identical in both
+     and under its limit; `-a phd -y` mapping with measurements every frame
+     and a map); experiments_kinect.k9: `-a phd -p 2000` in float32 (beam
+     kernel once a frame, fused kernel never: the Kinect model has depth
+     occlusion), twice, identical, with its host reads a frame and peak
+     device memory, and `odometry` and `isam2` in float64, each under its
+     limit; the idle share of 10 profiled frames (profile_step --kinect);
+     then `cli.main -i kinect` with `-a isam2` (float64), `-a phd -p 200`
+     and `-a odometry` over the converted sequence, postanalysis on each,
+     and the recording's sidebar.avi: one baseline JPEG a frame at the
+     subsampled image's size.
+Cuts for the time limit: phase 8 runs the port's own s2 recording once (the
+repeat runs on the JAX recording) and its 3D run to LOOPY_BUDGET_S. Nothing
+of phases 2-7 was cut: phase 4 still runs all 300 frames.
 
 A kernel's time is its device time: torch.profiler's CUDA kernel events
 selected by the kernel's name, their mean over the launches. The wrapper's wall
@@ -87,15 +105,18 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from monorfs_tpu_torch import _build, bench_isam2, cli, postanalysis
+from monorfs_tpu_torch import _build, bench_isam2, cli, experiments_kinect, native, postanalysis
 from monorfs_tpu_torch.bench import BENCH_CONFIG, run as run_bench
 from monorfs_tpu_torch.config import Config
+from monorfs_tpu_torch.frontend.dataset import RGBDDataset, convert_tum
 from monorfs_tpu_torch.gm.mixture import DEAD, SGM
 from monorfs_tpu_torch.io import Recording, World, parse_commands
+from monorfs_tpu_torch.io.avi import jpeg_size, read_mjpeg
 from monorfs_tpu_torch.kernel_cases import beam_ties, fused_state
 from monorfs_tpu_torch.models import PRM3D
 from monorfs_tpu_torch.models import get as get_model
-from monorfs_tpu_torch.profile_step import count_syncs, host_syncs, in_package, loopy_navigator
+from monorfs_tpu_torch.profile_step import (count_syncs, host_syncs, in_package, loopy_navigator,
+                                            profile_kinect)
 from monorfs_tpu_torch.sim.simulation import Simulation
 from monorfs_tpu_torch.slam import association, beam_kernel, fused_kernel, graph
 from monorfs_tpu_torch.slam.isam2_scan import build_isam2_scan_runner, scan_draws
@@ -558,8 +579,9 @@ def run_cli(name, argv, frames, per_frame, ate_limit, ospa_limit, record):
                                 "none: the graph backend has no hand-written kernel" if "isam2" in argv else
                                 "none: float64 takes the XLA-semantics functions and the plain beam"
                                 if per_frame == (0, 0) else
-                                "fused only: mapping-only weighs no particle" if per_frame == (1, 0)
-                                else "fused and beam"))
+                                "fused only: mapping-only weighs no particle" if per_frame == (1, 0) else
+                                "beam only: the Kinect model's depth occlusion keeps the fused kernel off"
+                                if per_frame == (0, 1) else "fused and beam"))
     say("cli-run", **row)
     return row, rec, launches
 
@@ -748,6 +770,15 @@ def graph_phase(dev, kernels, tmp):
 # The port's PHD run draws other noise, so its recording and smoother result
 # differ; the limits bound the algorithm, not the draws.
 LOOPY_2D = (2 * 0.251138, 0.475211 + 0.1)
+# Over the JAX package's own odometry recording (the second command's
+# recording, committed as tests/data/chap5_s2_odometry_jax.zip) the port must
+# give the JAX result itself, 0.251138 / 0.475211, within what float32 sums in
+# another order and a line-search near-tie can move (about 2e-5 in PR 5's two
+# runs; tests/test_torch_loopy_parity.py holds the first nodes to 1e-6 in
+# float64).
+LOOPY_JAX = (0.251138, 0.475211)
+LOOPY_JAX_TOL = (0.01, 0.02)
+JAX_S2_RECORDING = pathlib.Path(__file__).resolve().parent / "tests" / "data" / "chap5_s2_odometry_jax.zip"
 # The 3D run smooths a PHD recording of the 3D asset world by the same rule;
 # the JAX package's CPU run (float32, seed 0):
 #   python -m monorfs_tpu.cli -f assets/sim3d.world -c assets/mov3d.in -a phd -p 200 -r phd3d.zip
@@ -755,7 +786,10 @@ LOOPY_2D = (2 * 0.251138, 0.475211 + 0.1)
 #   python -m monorfs_tpu.cli -f phd3d.zip -i record -a loopy -r loopy3d.zip
 #       -> ATE loc RMSE 0.00748151, final OSPA 0.0830064 (181 s).
 LOOPY_3D = (2 * 0.00748151, 0.0830064 + 0.1)
-LOOPY_BUDGET_S = 300.0
+# The 3D run is cut to this many seconds (estimated from the s2 run's seconds
+# a node; a 3D node costs 2.8 2D nodes, PERF.md section 5: 426 vs 152 ms).
+LOOPY_BUDGET_S = 80.0
+LOOPY_3D_NODE_COST = 2.8
 CHAP5_CFG = pathlib.Path(__file__).resolve().parent / "experiments" / "configs" / "chap5-default2d.cfg"
 
 
@@ -859,9 +893,10 @@ def run_loopy_cli(name, argv, limits, record, float32=True):
 
 
 def loopy_phase(dev, kernels, tmp):
-    """Phase 8: the smoother's command line on the chap5 s2 workflow
-    (twice), in float64, and on the 3D world (its kernel shapes are checked
-    with phases 2-3, by loopy_kernels)."""
+    """Phase 8: the smoother's command line over the JAX package's s2
+    recording (twice), on the port's own chap5 s2 workflow, in float64, and
+    on the 3D world (its kernel shapes are checked with phases 2-3, by
+    loopy_kernels)."""
     graph.assert_full_precision()
     assets = pathlib.Path(__file__).resolve().parent / "assets"
     cfg = ["-g", str(CHAP5_CFG)]
@@ -878,11 +913,21 @@ def loopy_phase(dev, kernels, tmp):
             total[k] += n
         return row
 
-    first = tally(run_loopy_cli("s2-loopy", replay, LOOPY_2D, tmp / "s2-loopy.zip"))
-    second = tally(run_loopy_cli("s2-loopy-again", replay, LOOPY_2D, tmp / "s2-loopy-2.zip"))
+    # the JAX package's recording: its result within the tolerance, twice
+    jax_replay = ["-f", str(JAX_S2_RECORDING), "-i", "record", "-a", "loopy"] + cfg
+    jax_limits = tuple(v + tol for v, tol in zip(LOOPY_JAX, LOOPY_JAX_TOL))
+    first = tally(run_loopy_cli("s2-jax-recording-loopy", jax_replay, jax_limits, tmp / "s2-jax-loopy.zip"))
+    second = tally(run_loopy_cli("s2-jax-recording-loopy-again", jax_replay, jax_limits,
+                                 tmp / "s2-jax-loopy-2.zip"))
+    gap = (first["ate"] - LOOPY_JAX[0], first["ospa"] - LOOPY_JAX[1])
+    if abs(gap[0]) > LOOPY_JAX_TOL[0] or abs(gap[1]) > LOOPY_JAX_TOL[1]:
+        raise AssertionError(f"the smoother over the JAX recording gives {first['ate']} / {first['ospa']}, "
+                             f"the JAX package {LOOPY_JAX}")
     if (first["ate"], first["ospa"]) != (second["ate"], second["ospa"]):
         raise AssertionError(f"two runs of the same -a loopy command differ: {first} and {second}")
-    say("loopy-deterministic", ate=first["ate"], ospa=first["ospa"], identical=True)
+    say("loopy-vs-jax", ate=first["ate"], ospa=first["ospa"], jax=LOOPY_JAX, gap=gap, tolerance=LOOPY_JAX_TOL,
+        identical_in_two_runs=True)
+    own = tally(run_loopy_cli("s2-loopy", replay, LOOPY_2D, tmp / "s2-loopy.zip"))
     # float64 on the card, cut to a third of the frames (the plain beam and the
     # XLA-semantics filter take most of a run's time): held to the same limits
     tally(run_loopy_cli("s2-loopy-float64-90", replay + ["--dtype", "float64", "--frames", "90"],
@@ -895,10 +940,11 @@ def loopy_phase(dev, kernels, tmp):
             cli.main(["-f", str(assets / "sim3d.world"), "-c", str(assets / "mov3d.in"), "-a", "phd",
                       "-p", "200", "-r", str(source)])
     frames = 300
-    per_node_s = first["seconds"] / first["frames"] * 1.8  # a 3D node costs 1.7 2D nodes (PERF.md)
+    per_node_s = own["seconds"] / own["frames"] * LOOPY_3D_NODE_COST
     if per_node_s * frames > LOOPY_BUDGET_S:
         frames = int(LOOPY_BUDGET_S / per_node_s)
-        say("loopy-3d-cut", frames=frames, of=300, reason="the phase would pass 5 minutes")
+        say("loopy-3d-cut", frames=frames, of=300, budget_s=LOOPY_BUDGET_S,
+            reason="the whole run's time limit, with phase 9 added")
     tally(run_loopy_cli("3d-loopy", ["-f", str(source), "-i", "record", "-a", "loopy",
                                      "--frames", str(frames)], LOOPY_3D, tmp / "3d-loopy.zip"))
 
@@ -913,12 +959,173 @@ def loopy_phase(dev, kernels, tmp):
         k.setdefault("launches_by_path", {})["loopy"] = total[k["name"]]
 
 
+# ---- phase 9: the RGB-D input -------------------------------------------------------
+
+# Limits, from the JAX package's committed results of the same experiments
+# (experiments/out/SUMMARY.md, its CPU runs in float64):
+#   chap3-k6real isam2 ATE 0.02444 (line 9): twice that;
+#   chap4-k9 phd ATE 0.01505, OSPA-vs-reference-map 0.2709 (line 34; 50
+#     particles in float64, the JAX package's own run): twice the ATE, the
+#     OSPA + 0.1, for this 2000-particle float32 run;
+#   chap4-k9 odometry ATE 0.007188 (line 35): dead reckoning over the same
+#     numpy-seeded commands draws nothing, so it must equal that to its four
+#     digits;
+#   chap4-k9 isam2 ATE 0.002547, OSPA 0.131 (line 36): twice the ATE, OSPA + 0.1.
+K6_ISAM2_ATE = 2 * 0.02444
+K9_PHD = (2 * 0.01505, 0.2709 + 0.1)
+K9_ODOMETRY_ATE = 0.007188
+K9_ISAM2 = (2 * 0.002547, 0.131 + 0.1)
+KINECT_BEAM = dict(P=2000, B=200, C=8, M=64, n_lm=128)  # the default PHDConfig at P=2000, 64 slots
+TUM_REAL = pathlib.Path(__file__).resolve().parent / "assets" / "tum_real"
+
+
+def kinect_beam(dev, kernels):
+    """The beam kernel at the Kinect path's shape against its plain version,
+    bit for bit, on random and tie-heavy options; timed."""
+    p, b, c, m = (KINECT_BEAM[k] for k in ("P", "B", "C", "M"))
+    name = f"kinect-P{p}-B{b}-C{c}-W4-M{m}"
+    inputs, n_words = beam_random(dev, 31, p, KINECT_BEAM["n_lm"], m, c)
+    if n_words != 4:
+        raise AssertionError(f"{KINECT_BEAM['n_lm']} landmarks give {n_words} words, not 4")
+    beam_check(name, inputs, b, n_words)
+    beam_check(name + "-ties", [torch.as_tensor(x, device=dev) for x in beam_ties(33, p, m, c, n_words)],
+               b, n_words)
+    bms, by = beam_bound(inputs, b)
+    row = dict(case=name, shape=dict(P=p, M=m, C=c, B=b, n_words=n_words), max_abs_err=0.0,
+               bound_ms=bms, bound_by=by,
+               ms=kernel_ms(lambda: beam_kernel.beam_scan_batch(*inputs, b, n_words), 5, BEAM_KERNEL),
+               plain_ms=cuda_ms(lambda: beam_kernel.beam_scan_plain(*inputs, b, n_words), 2))
+    say("beam-shape", **row)
+    shape_row(kernels, "beam_scan", row, dict(
+        name="beam_scan", route="cuda", source="monorfs_tpu_torch/csrc/beam_scan.cu",
+        replaces="monorfs_tpu/slam/beam_pallas.py:178"))
+
+
+def same_result(a, b):
+    """Two experiment rows agree in everything but their wall seconds."""
+    return {k: v for k, v in a.items() if k != "seconds"} == {k: v for k, v in b.items() if k != "seconds"}
+
+
+def check_sidebar(record, frames, size):
+    """The recording's sidebar.avi: one baseline JPEG a frame, SOF0 at `size`."""
+    jpegs = read_mjpeg(io.BytesIO(Recording.load(record).sidebar))
+    if len(jpegs) != frames:
+        raise AssertionError(f"sidebar.avi holds {len(jpegs)} frames, not {frames}")
+    for j in jpegs:
+        if j[:2] != b"\xff\xd8" or j[-2:] != b"\xff\xd9" or b"\xff\xc0" not in j or jpeg_size(j) != size:
+            raise AssertionError(f"sidebar frame: {j[:4].hex()}..{j[-2:].hex()}, size {jpeg_size(j)} not {size}")
+    return len(jpegs), sum(map(len, jpegs)) / len(jpegs)
+
+
+def kinect_phase(dev, kernels, tmp):
+    """Phase 9: the RGB-D input through experiments_kinect, profile_step and
+    cli.main."""
+    graph.assert_full_precision()
+    kinect_beam(dev, kernels)
+    t0 = time.perf_counter()
+    npz = tmp / "seq.npz"
+    convert_tum(str(TUM_REAL), str(npz))
+    seq = RGBDDataset(npz)
+    say("kinect-convert", seconds=time.perf_counter() - t0,
+        decoder="native librfsio (build/native)" if native.available() else "pure-Python fallback",
+        shapes={k: list(getattr(seq, k).shape) for k in ("time", "depth", "gray")},
+        dtypes={k: str(getattr(seq, k).dtype) for k in ("time", "depth", "gray")})
+    total = {"beam_scan": 0, "fused_stage": 0}
+
+    def counted(fn):
+        reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        for k, n in launches.items():
+            total[k] += n
+        return out, seconds, launches
+
+    # k6real, twice: float64, no kernel
+    runs = [counted(lambda i=i: experiments_kinect.k6real(tmp / f"k6-{i}", dev, torch.float64))
+            for i in range(2)]
+    (k6, seconds, launches), (k6b, _, _) = runs
+    isam2, mapping = k6["isam2"], k6["phd"]
+    if any(launches.values()) or not isam2["ate_loc_rmse"] < K6_ISAM2_ATE:
+        raise AssertionError(f"k6real isam2: {isam2}, launches {launches}, ATE limit {K6_ISAM2_ATE}")
+    if not (same_result(isam2, k6b["isam2"]) and same_result(mapping, k6b["phd"])):
+        raise AssertionError(f"two k6real runs differ: {k6} and {k6b}")
+    if mapping["frames_with_measurements"] != mapping["frames"] or mapping["map_components"] == 0:
+        raise AssertionError(f"k6real phd mapping: {mapping}")
+    say("kinect-k6real", **k6, seconds=seconds, ate_limit=K6_ISAM2_ATE, identical_in_two_runs=True)
+
+    # k9 -a phd -p 2000 float32: the beam kernel once a frame, the fused never
+    torch.cuda.reset_peak_memory_stats(dev)
+    k9, seconds, launches = counted(
+        lambda: experiments_kinect.k9(tmp / "k9", 2000, torch.float32, ("phd",), dev))
+    peak = torch.cuda.max_memory_allocated(dev)
+    row = k9["phd"]
+    frames = row["frames"]
+    if launches != {"beam_scan": frames, "fused_stage": 0}:
+        raise AssertionError(f"k9 phd: launches {launches} over {frames} frames (beam once a frame, fused never)")
+    if not (row["ate_loc_rmse"] < K9_PHD[0] and row.get("ospa_vs_refmap", 1.0) < K9_PHD[1]):
+        raise AssertionError(f"k9 phd: {row}, limits {K9_PHD}")
+    again, syncs = None, None
+
+    def second():
+        nonlocal again
+        again = experiments_kinect.k9(tmp / "k9b", 2000, torch.float32, ("phd",), dev)
+
+    syncs, where = count_syncs(second, 2 * frames)  # the reference map's source sees every frame too
+    if not same_result(again["phd"], row):
+        raise AssertionError(f"two k9 phd runs differ: {row} and {again['phd']}")
+    say("kinect-k9-phd", **row, particles=2000, dtype="float32", call_seconds=seconds,
+        ms_per_frame=row["seconds"] * 1e3 / frames, launches=launches, ate_limit=K9_PHD[0],
+        ospa_limit=K9_PHD[1], reference_map_landmarks=k9["reference_map_landmarks"],
+        peak_device_memory_gb=peak / 2**30, host_syncs_per_source_frame=syncs, sync_sites=where,
+        identical_in_two_runs=True,
+        note="seconds: the first run's filter alone; call_seconds with conversion and reference map; "
+             "host syncs of the second call (48 source frames: the reference map's and the run's)")
+    for k in kernels:
+        k.setdefault("launches_by_path", {})["kinect-k9-phd"] = launches[k["name"]]
+
+    k9b, seconds, launches = counted(
+        lambda: experiments_kinect.k9(tmp / "k9-f64", 50, torch.float64, ("odometry", "isam2"), dev))
+    odo, isam2 = k9b["odometry"], k9b["isam2"]
+    if any(launches.values()) or round(odo["ate_loc_rmse"], 6) != K9_ODOMETRY_ATE:
+        raise AssertionError(f"k9 odometry: {odo} (JAX {K9_ODOMETRY_ATE}), launches {launches}")
+    if not (isam2["ate_loc_rmse"] < K9_ISAM2[0] and isam2.get("ospa_vs_refmap", 1.0) < K9_ISAM2[1]):
+        raise AssertionError(f"k9 isam2: {isam2}, limits {K9_ISAM2}")
+    say("kinect-k9-float64", odometry=odo, isam2=isam2, seconds=seconds, odometry_ate_jax=K9_ODOMETRY_ATE,
+        isam2_limits=K9_ISAM2)
+
+    prof = profile_kinect(10, dev)
+    say("kinect-profile", **{k: prof[k] for k in ("frames", "wall_ms_per_frame", "device_ms_per_frame",
+                                                  "device_idle_share", "device_events_per_frame",
+                                                  "stages", "kernels", "shape")})
+    reset_launches()  # the profile's launches are not the path's count
+
+    # the command line: the default camera at KinectDelta 4 (a 40 x 30 image)
+    delta = Config().kinect_delta
+    size = (seq.gray.shape[2] // delta, seq.gray.shape[1] // delta)
+    for name, flags, per_frame in (("kinect-isam2", ["-a", "isam2", "--dtype", "float64"], (0, 0)),
+                                   ("kinect-phd", ["-a", "phd", "-p", "200"], (0, 1)),
+                                   ("kinect-odometry", ["-a", "odometry"], (0, 0))):
+        record = tmp / f"{name}.zip"
+        _, _, launches = run_cli(name, ["-f", str(npz), "-i", "kinect"] + flags, len(seq), per_frame,
+                                 None, 1.0, record)
+        for k, n in launches.items():
+            total[k] += n
+        n, mean_bytes = check_sidebar(record, len(seq), size)
+        say("kinect-sidebar", run=name, frames=n, size=list(size), mean_jpeg_bytes=mean_bytes)
+    graph.assert_full_precision()
+    for k in kernels:
+        k["launches"] = k.get("launches", 0) + total[k["name"]]
+        k.setdefault("launches_by_path", {})["kinect"] = total[k["name"]]
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=pathlib.Path, default=None,
                     help="another checkout whose kernels are timed on the same inputs")
-    ap.add_argument("--phases", default="kernels,bench,sync,cli,graph,loopy",
-                    help="comma-separated subset of kernels,bench,sync,cli,graph,loopy (default: all)")
+    ap.add_argument("--phases", default="kernels,bench,sync,cli,graph,loopy,kinect",
+                    help="comma-separated subset of kernels,bench,sync,cli,graph,loopy,kinect (default: all)")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -963,6 +1170,8 @@ def main():
             graph_phase(dev, kernels, tmp)
         if "loopy" in phases:
             loopy_phase(dev, kernels, tmp)
+        if "kinect" in phases:
+            kinect_phase(dev, kernels, tmp)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

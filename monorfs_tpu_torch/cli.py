@@ -10,8 +10,12 @@ The flags of the reference CLI (mono-rfs/Program.cs:114-131):
   -i/--input simulation|record|kinect, -x/--headless (always true here),
 plus --seed, --dtype, --progress, --checkpoint, --frames and --device (cuda
 by default; without a GPU the run raises unless given --device cpu).
-Ported: -a phd, odometry, isam2 and loopy, -i simulation and record; -i
-kinect raises NotImplementedError."""
+
+`-i kinect` reads an RGB-D sequence converted to .npz (frontend/dataset.py::
+convert_tum) through the keypoint frontend, with the default camera
+subsampled by the configuration's KinectDelta:
+
+    python -m monorfs_tpu_torch.cli -f seq.npz -i kinect -a isam2 --dtype float64 -r kinect.zip"""
 
 import argparse
 import signal
@@ -21,7 +25,10 @@ import time
 import numpy as np
 
 from .config import Config
+from .frontend.dataset import RGBDDataset
+from .frontend.kinect import KinectSource
 from .io import Recording, World, parse_commands
+from .models.kinect_model import Params as KinectParams
 from .sim.simulation import Simulation
 
 
@@ -49,25 +56,42 @@ def build_parser():
     return ap
 
 
+def kinect_camera(delta):
+    """The default Kinect camera's intrinsics and sensor geometry in the
+    frame of an image subsampled by `delta`."""
+    cam = KinectParams()
+    return KinectParams(
+        focal=cam.focal / delta, film_left=cam.film_left / delta, film_top=cam.film_top / delta,
+        film_width=cam.film_width / delta, film_height=cam.film_height / delta,
+        range_min=cam.range_min, range_max=cam.range_max, res_x=cam.res_x / delta,
+        res_y=cam.res_y / delta, border=max(1, cam.border // delta),
+    )
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.input == "kinect":
-        raise NotImplementedError(
-            "-i kinect is not ported yet (ROADMAP.md, modules still to port: Kinect, "
-            "RGB-D frontend)"
-        )
 
     cfg = Config()
     rec = None
     # config precedence (Program.cs:158-177): explicit -g > recording-embedded
-    # > defaults, resolved before any consumer is constructed
+    # > defaults, resolved before any consumer is constructed, so a -g
+    # KinectDelta / KeypointFilter reaches the Kinect source
     if args.input == "record":
         rec = Recording.load(args.file)
         cfg.apply_descriptor(rec.config_text.splitlines())
     if args.config:
         cfg = Config.from_file(args.config)
 
-    if args.input == "record":
+    kinect_source = None
+    if args.input == "kinect":
+        kinect_source = KinectSource(RGBDDataset(args.file), delta=cfg.kinect_delta, device=args.device)
+        world = World(
+            pose=np.array([0, 0, 0, 1, 0, 0, 0.0]),
+            landmarks=np.zeros((0, 3)),
+            measurer_params=np.array(kinect_camera(cfg.kinect_delta).to_linear()),
+        )
+        commands = parse_commands(open(args.command).read()) if args.command else []
+    elif args.input == "record":
         world = rec.world
         commands = []
     else:
@@ -100,6 +124,7 @@ def main(argv=None):
         seed=args.seed,
         dtype=np.dtype(args.dtype),
         replay=rec,
+        kinect_source=kinect_source,
         device=args.device,
     )
 

@@ -28,11 +28,10 @@ def _t(x, dtype, dev):
 def phd_params(fields, dtype=torch.float32, device="cuda"):
     """PHDParams from a mapping of the JAX PHDParams fields (e.g.
     `{k: np.asarray(v) for k, v in params._asdict().items()}`), for any
-    measurement dimension and pose width. The JAX depth_map is not carried:
-    no ported model has depth occlusion."""
-    return phd.make_params(
-        dtype=dtype, device=device, **{k: np.asarray(fields[k]) for k in _PARAM_FIELDS}
-    )
+    measurement dimension and pose width; depth_map when the mapping has
+    one."""
+    names = _PARAM_FIELDS + (("depth_map",) if "depth_map" in fields else ())
+    return phd.make_params(dtype=dtype, device=device, **{k: np.asarray(fields[k]) for k in names})
 
 
 def phd_state(pose, logweight, maps, best, ancestor, dtype=torch.float32, device="cuda"):

@@ -1,10 +1,9 @@
 """Recording zip reader/writer, byte-compatible with the reference format:
-the port's own copy of monorfs_tpu.io.recording, without the sensor-view
-video (sidebar.avi is neither written nor read).
+the port's own copy of monorfs_tpu.io.recording.
 
 Reference: Simulation.SaveToFile (Simulation.cs:391-488) writes a zip with
   scene.world, trajectory.out, odometry.out, estimate.out, maps.out,
-  vismaps.out, measurements.out, tags.out, config.cfg
+  vismaps.out, measurements.out, tags.out, config.cfg [, sidebar.avi]
 and RecordVehicle.FromFile (RecordVehicle.cs:244-347) + FileParser
 (FileParser.cs:51-341) read it back.
 """
@@ -162,6 +161,9 @@ class Recording:
     sightings: List[Tuple[float, List[int]]] = dataclasses.field(
         default_factory=list
     )
+    # sensor-view video (MJPEG AVI bytes, io/avi.py; the reference embeds
+    # sidebar.avi, Simulation.cs:391-488); empty when the run has none
+    sidebar: bytes = b""
 
     def save(self, filename):
         with zipfile.ZipFile(filename, "w", zipfile.ZIP_DEFLATED) as zf:
@@ -185,15 +187,20 @@ class Recording:
                 zf.writestr(
                     "sightings.out", serialize_sightings(self.sightings)
                 )
+            if self.sidebar:
+                zf.writestr("sidebar.avi", self.sidebar)
 
     @classmethod
     def load(cls, filename) -> "Recording":
         with zipfile.ZipFile(filename) as zf:
-            def read(name):
+            def read_bytes(name):
                 try:
-                    return zf.read(name).decode("utf-8")
+                    return zf.read(name)
                 except KeyError:
-                    return ""
+                    return b""
+
+            def read(name):
+                return read_bytes(name).decode("utf-8")
 
             world = World.parse(read("scene.world"))
             dim = len(world.pose)
@@ -217,4 +224,5 @@ class Recording:
                 tags=parse_tags(read("tags.out")),
                 config_text=read("config.cfg"),
                 sightings=parse_sightings(read("sightings.out")),
+                sidebar=read_bytes("sidebar.avi"),
             )

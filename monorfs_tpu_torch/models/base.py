@@ -2,11 +2,15 @@
 model as plain tensor functions (Navigator.cs:47-50, IMeasurer.cs:38-148):
 the torch twin of monorfs_tpu.models.base. Landmarks are always 3-vectors;
 the measurement dimension varies per model. Measurer parameters are a frozen
-dataclass of Python floats. No ported model has depth occlusion, so the
-`*_fn` accessors return the model's own functions."""
+dataclass of Python floats. A depth-occlusion model (Kinect) takes the live
+depth map as a trailing argument of its visibility functions; the `*_fn`
+accessors close over it, and return the model's own functions for every
+other model, which ignores the map."""
 
 import dataclasses
 from typing import Any, Callable
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,14 +51,31 @@ class Model:
     jac_landmark_soa: Callable  # -> D x 3 smallmat list
     to_map_soa: Callable  # (params, pose, z D-list) -> 3-list
     fuzzy_visible_soa: Callable  # (params, z D-list, ramp)
+    # depth-occlusion models take the live depth map [H, W] as a trailing
+    # argument of visible / fuzzy_visible / fuzzy_visible_soa
+    uses_depth: bool = False
 
     def with_params(self, params):
         return dataclasses.replace(self, params=params)
 
-    def fuzzy_visible_fn(self):
+    def _depth(self, depth_map, like):
+        """The depth map, or a [1, 1] +inf one (frustum visibility alone)."""
+        if depth_map is not None:
+            return depth_map
+        return torch.full((1, 1), float("inf"), dtype=like.dtype, device=like.device)
+
+    def fuzzy_visible_fn(self, depth_map=None):
+        """fuzzy_visible closed over the (possibly unused) depth map."""
+        if self.uses_depth:
+            return lambda params, z, ramp: self.fuzzy_visible(params, z, ramp, self._depth(depth_map, z))
         return self.fuzzy_visible
 
-    def visible_fn(self):
+    def visible_fn(self, depth_map=None):
+        """visible closed over the (possibly unused) depth map; with None a
+        depth-occlusion model sees through a [1, 1] +inf map, so frustum
+        visibility alone counts."""
+        if self.uses_depth:
+            return lambda params, z: self.visible(params, z, self._depth(depth_map, z))
         return self.visible
 
     def measure_soa_fn(self):
@@ -66,7 +87,10 @@ class Model:
     def to_map_soa_fn(self):
         return self.to_map_soa
 
-    def fuzzy_visible_soa_fn(self):
+    def fuzzy_visible_soa_fn(self, depth_map=None):
+        if self.uses_depth:
+            return lambda params, z, ramp: self.fuzzy_visible_soa(params, z, ramp,
+                                                                  self._depth(depth_map, z[0]))
         return self.fuzzy_visible_soa
 
 

@@ -6,6 +6,7 @@ the command-line path.
     python -m monorfs_tpu_torch.profile_step --cli 3d|2d|2dloop|1d [--frames 50]
     python -m monorfs_tpu_torch.profile_step --graph nav|scan|scan-da [--frames 20]
     python -m monorfs_tpu_torch.profile_step --loopy 2d|3d [--frames 40] [--sweeps 1]
+    python -m monorfs_tpu_torch.profile_step --kinect [--frames 10]
 
 Runs one warm-up chunk, then `--frames` frames under torch.profiler (CPU and
 CUDA activity) and prints one JSON object: host wall time per frame, device
@@ -40,6 +41,15 @@ loopy.final_map and loopy.sweep.* (from the third sweep on), both kernels'
 device time and launches, and the host synchronisations per node of a
 refit over the first 10 nodes, with the lines that waited.
 
+--kinect profiles the RGB-D input: the k9 run of experiments_kinect (the
+real-pixel sequence assets/tum_real through FAST / LATCH / RANSAC, scripted
+odometry, `-a phd` with 2000 particles in float32, the default PHDConfig:
+the beam kernel on, the fused kernel off for the depth-occlusion model),
+`--frames` frames after 4 warm-up frames, with the stages kinect.frontend
+(extraction and the temporal filter on the device) and vehicle (the whole
+source: subsampling, upload, the frontend, the one host read and the
+measurement loop).
+
 --sync-check instead runs the frames under
 torch.cuda.set_sync_debug_mode("warn") and prints every call that made the
 host wait for the device, with the file and line it came from; it exits
@@ -71,7 +81,7 @@ STAGES = ("vehicle", "record", "phd.predict", "phd.fused_stage", "phd.weight_inp
           "graph.auction", "graph.solve", "graph.marginals", "loopy.refit.seeds",
           "loopy.refit.grad", "loopy.refit.fan", "loopy.refit.map", "loopy.objective.cavity",
           "loopy.objective.ll", "loopy.final_map", "loopy.sweep.forward", "loopy.sweep.backward",
-          "loopy.sweep.map", "loopy.sweep.fuse")
+          "loopy.sweep.map", "loopy.sweep.fuse", "kinect.frontend")
 GRAPH_WARM = 250  # navigator frames run before its profile starts
 KERNELS = {"beam_scan": "beam_scan", "fused_stage": "fused_stage_kernel"}  # name: substring
 PACKAGE = pathlib.Path(__file__).resolve().parent
@@ -295,6 +305,35 @@ def profile_loopy(which, n, sweeps, device="cuda"):
     return out
 
 
+def profile_kinect(n=10, device="cuda"):
+    """Profile n frames of the k9 `-a phd` run (2000 particles) after 4
+    warm-up frames."""
+    import tempfile
+
+    from . import experiments_kinect as ek
+
+    warmup = 4
+    with tempfile.TemporaryDirectory() as tmp:
+        npz, true_x, world = ek.sequence(pathlib.Path(tmp), warmup + n)
+        src = ek.source(npz, device)
+        commands = ek.k9_commands(true_x)
+        sim = Simulation(ek.k9_cfg(), world, commands, algorithm="phd", particles=2000,
+                         kinect_source=src, dtype=np.float32, device=device)
+        for cmd in commands[:warmup]:
+            sim.step(cmd)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for cmd in commands[warmup:]:
+                sim.step(cmd)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    out = summarise(prof, wall, n)
+    out.update(path="kinect", shape=dict(P=sim.particles, K0=sim.phd_cfg.max_components, M=sim.max_meas,
+                                         B=sim.phd_cfg.beam_width, C=sim.phd_cfg.beam_candidates))
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=None, help="frames (nodes for --loopy; "
@@ -305,8 +344,13 @@ def main(argv=None):
     ap.add_argument("--graph", choices=["nav", "scan", "scan-da"], default=None)
     ap.add_argument("--loopy", choices=["2d", "3d"], default=None)
     ap.add_argument("--sweeps", type=int, default=1, help="--loopy: smoother sweeps")
+    ap.add_argument("--kinect", action="store_true")
     args = ap.parse_args(argv)
     n = args.frames or 50
+
+    if args.kinect:
+        print(json.dumps(profile_kinect(args.frames or 10)), flush=True)
+        return
 
     if args.loopy:
         print(json.dumps(profile_loopy(args.loopy, args.frames or 40, args.sweeps)), flush=True)

@@ -10,18 +10,21 @@ odometry) collapse the particle set like StartSlam / StartMapping
 recorded, so the best particle's full trajectory can be reconstructed for
 estimate.out.
 
-Ported: the `phd`, `odometry`, `isam2` (graph backend, slam/isam2nav.py)
-and `loopy` (offline smoother, slam/loopynav.py) algorithms, simulated and
-replayed (recording) input, the PRM3D, Linear2D and Linear1D models. The
-Kinect input raises NotImplementedError at construction.
+Algorithms: `phd`, `odometry`, `isam2` (graph backend, slam/isam2nav.py)
+and `loopy` (offline smoother, slam/loopynav.py). Inputs: simulated,
+replayed (a recording) and Kinect (an RGB-D source, frontend/kinect.py,
+whose frames also become the recording's sidebar.avi). Models: PRM3D,
+Linear2D, Linear1D and Kinect.
 
 Randomness: the simulation owns a torch.Generator on its device, seeded with
 `seed`; every frame's draws come from `draws.frame(i)`, by default a
-GeneratorDraws over that generator. A caller may pass its own `draws` (any
-object with frame(i) -> dict of tensors), e.g. to feed another package's
-random numbers."""
+GeneratorDraws over that generator. A Kinect run draws no vehicle noise
+(the source is the vehicle), only the filter's. A caller may pass its own
+`draws` (any object with frame(i) -> dict of tensors), e.g. to feed another
+package's random numbers."""
 
 import dataclasses
+import io
 import time
 from typing import List, Optional
 
@@ -31,7 +34,9 @@ from torch.profiler import record_function
 
 from .. import resolve_device
 from ..config import Config
+from ..frontend.kinect import upload
 from ..gm import mixture
+from ..io import avi
 from ..io.recording import Recording
 from ..io.world import World
 from ..models import get as get_model
@@ -52,26 +57,27 @@ def torch_dtype(dtype):
 
 def model_for_config(cfg: Config, world: World):
     """The run's measurement model, with the world's measurer descriptor
-    applied. A 10-value descriptor means the Kinect measurer
-    (KinectMeasurer.cs:94-106), which is not ported (ROADMAP.md, open items,
-    section 1: "Kinect")."""
+    applied. A 10-value descriptor under PRM3D means the Kinect measurer
+    (KinectMeasurer.cs:94-106)."""
     mp = world.measurer_params
-    if cfg.model == "PRM3D" and mp is not None and len(mp) == 10:
-        raise NotImplementedError(
-            "the Kinect model (10-value measurer descriptor) is not ported yet: "
-            "ROADMAP.md, modules still to port, 'Kinect'"
-        )
-    model = get_model(cfg.model)
+    name = cfg.model
+    if name == "PRM3D" and mp is not None and len(mp) == 10:
+        name = "Kinect"
+    model = get_model(name)
     if mp is not None:
         model = model.with_params(model.params.from_linear(mp))
     return model
 
 
 def draw_frames(gen, n, landmarks, meas_dim, odo_dim, particles, max_clutter,
-                clutter_count, dtype, device):
+                clutter_count, dtype, device, vehicle=True):
     """Every random draw of n frames, made in bulk on the device, each
-    tensor with a leading frame axis."""
+    tensor with a leading frame axis; without `vehicle` only the filter's
+    (motion normals and resample uniforms)."""
     kw = dict(generator=gen, dtype=dtype, device=device)
+    if not vehicle:
+        return dict(motion_normals=torch.randn((n, particles, odo_dim), **kw),
+                    resample_u=torch.rand((n,), **kw))
     return dict(
         odo_normals=torch.randn((n, odo_dim), **kw),
         detect_u=torch.rand((n, landmarks), **kw),
@@ -123,17 +129,16 @@ class Simulation:
         algorithms can be solved against identical data."""
         if algorithm not in ("phd", "odometry", "isam2", "loopy"):
             raise ValueError(f"unknown algorithm {algorithm}")
-        if kinect_source is not None:
-            raise NotImplementedError(
-                "the Kinect input is not ported yet (ROADMAP.md, modules still to port: "
-                "Kinect, RGB-D frontend)"
-            )
         self.device = resolve_device(device)
         self.cfg = cfg
         self.world = world
         self.replay = replay
+        self.kinect = kinect_source
         if replay is not None and not commands:
             commands = [r for _, r in replay.odometry]
+        if kinect_source is not None and not commands:
+            odo = {"PRM3D": 6, "Linear2D": 2, "Linear1D": 1}[cfg.model]
+            commands = [np.zeros(odo)] * len(kinect_source.dataset)
         self.commands = commands
         self.algorithm = algorithm
         self.dtype = torch_dtype(dtype)
@@ -144,6 +149,8 @@ class Simulation:
         lmax = max(len(world.landmarks), 1)
         self.max_clutter = 8
         self.max_meas = lmax + self.max_clutter
+        if kinect_source is not None:
+            self.max_meas = 64  # the vision keypoint budget of a frame
         self.phd_cfg = phd_config or phd.PHDConfig(
             num_particles=particles,
             max_components=cfg.max_quantity,
@@ -169,7 +176,7 @@ class Simulation:
             self.generator, landmarks=lmax, meas_dim=self.model.meas_dim,
             odo_dim=self.model.pose.odo_dim, particles=particles,
             max_clutter=self.max_clutter, clutter_count=self.vparams.clutter_count,
-            dtype=dt, device=dev,
+            dtype=dt, device=dev, vehicle=kinect_source is None,
         )
         self._build_navigator()
 
@@ -181,6 +188,7 @@ class Simulation:
         self.way_maps = []  # (t, [(w, mean, cov)])
         self.way_vismaps = []  # (t, [(w, mean, cov)])
         self.frames = []  # per-frame dict: poses [P, S], parents [P], best
+        self.sidebar_frames = []  # sensor-view JPEG payloads (Kinect runs), encoded at capture
         self.tags = []
         self.time = 0.0
         self.frame_index = 0
@@ -210,7 +218,8 @@ class Simulation:
                 self.cfg,
                 np.asarray(self.world.pose, np.float64),
                 max_poses=len(self.commands) + 2,
-                max_landmarks=max(4 * len(self.world.landmarks), 64),
+                max_landmarks=(256 if self.kinect is not None
+                               else max(4 * len(self.world.landmarks), 64)),
                 meas_per_frame=self.max_meas,
                 onlymapping=self.onlymapping,
                 device=self.device,
@@ -224,7 +233,9 @@ class Simulation:
         self.mode_mapping = self.onlymapping
 
     def _vehicle_frame(self, draws):
-        """Advance the vehicle and sample (or replay) a measurement set."""
+        """Advance the vehicle and sample (or replay, or see) a measurement set."""
+        if self.kinect is not None:
+            return self._kinect_frame()
         if self.replay is not None:
             return self._replay_frame()
         reading = self._tensor(self.current_command[: self.model.pose.odo_dim])
@@ -238,6 +249,50 @@ class Simulation:
         if not self.cfg.use_odometry:
             noisy = torch.zeros_like(noisy)
         return noisy, z, mask, labels, visible, detected
+
+    def _kinect_frame(self):
+        """An RGB-D frontend frame (KinectVehicle.Measure, KinectVehicle.cs:301-344):
+        measurements from the vision pipeline, no ground-truth pose, the
+        odometry from the command stream; a depth-occlusion model gets the
+        frame's depth map, uploaded without blocking the host."""
+        zs, depth = self.kinect.measure(self.frame_index)
+        self._sidebar_frame(depth, zs)
+        if self.model.uses_depth:
+            self.nparams = self.nparams._replace(depth_map=upload(depth, self.device, self.dtype))
+        d = self.model.meas_dim
+        z = np.zeros((self.max_meas, d))
+        n = min(len(zs), self.max_meas)
+        z[:n] = zs[:n, :d]
+        mask = np.arange(self.max_meas) < n
+        noisy = np.asarray(self.current_command[: self.model.pose.odo_dim], np.float64)
+        lmax = self.vstate.landmarks.shape[0]
+        none = torch.zeros(lmax, dtype=torch.bool, device=self.device)
+        dev, dt = self.device, self.dtype
+        return upload(noisy, dev, dt), upload(z, dev, dt), upload(mask, dev), None, none, none
+
+    def _sidebar_frame(self, depth, zs):
+        """One sensor-view frame: the normalised depth with the accepted
+        keypoints marked (the reference draws the same overlay,
+        KinectVehicle.cs:789-858), JPEG-encoded for the recording's
+        sidebar.avi."""
+        d = np.asarray(depth, np.float32)
+        lo, hi = float(d.min()), float(d.max())
+        img = ((d - lo) / (hi - lo + 1e-12) * 255).astype(np.uint8)
+        rgb = np.stack([img, img, img], axis=-1)
+        h, w = img.shape
+        for px, py, _ in np.asarray(zs).reshape(-1, 3):
+            x, y = int(px + w / 2), int(py + h / 2)
+            if 1 <= x < w - 1 and 1 <= y < h - 1:
+                rgb[y - 1:y + 2, x - 1:x + 2] = (255, 64, 64)
+        self.sidebar_frames.append(avi.jpeg_encode(rgb, quality=self.cfg.sidebar_jpeg_quality)[0])
+
+    def _sidebar_avi(self):
+        if not self.sidebar_frames:
+            return b""
+        buf = io.BytesIO()
+        fps = max(int(round(1.0 / max(self.cfg.measure_elapsed, 1e-3))), 1)
+        avi.write_mjpeg(buf, self.sidebar_frames, fps=fps)
+        return buf.getvalue()
 
     def _replay_frame(self):
         """RecordVehicle playback (RecordVehicle.cs:150-240): pose from the
@@ -487,6 +542,7 @@ class Simulation:
             tags=self.tags,
             config_text=self.cfg.to_descriptor(),
             sightings=self.way_sightings,
+            sidebar=self._sidebar_avi(),
         )
 
     def save(self, filename):

@@ -237,6 +237,13 @@ def fused_stage_plain(model, cfg, params, pose, maps: SGM, z, z_mask):
 
 # ---- CUDA kernel wrapper -----------------------------------------------------
 
+def supported(model, dtype):
+    """Whether the fused stage can run this configuration (the port's copy
+    of monorfs_tpu.slam.fused_pallas.supported): float32 and a model without
+    depth occlusion, so the Kinect model takes the XLA-semantics stage."""
+    return not model.uses_depth and dtype == torch.float32 and model.meas_dim in (1, 2, 3)
+
+
 def pack_params(model, params):
     """PHDParams -> flat [16 + D + D*D] f32 (layout read by
     csrc/fused_stage.cu): 7 scalars, ramp [D], meas_cov [D, D], birth_cov."""

@@ -11,10 +11,11 @@ make_slam_step wires it in the JAX package (phd.py:574-635):
   compact   measurements are gathered live-first (stable) into meas_compact
             slots, shared by all particles;
   correct   births + EKF correct + prune/merge: the fused stage with the
-            kernel's semantics (slam/fused_kernel.py) for float32, or the
-            XLA path's semantics (_births_soa + _correct_prune_soa: one
+            kernel's semantics (slam/fused_kernel.py) where
+            fused_kernel.supported holds (float32, no depth occlusion), or
+            the XLA path's semantics (_births_soa + _correct_prune_soa: one
             global top-K cut, no gate_top cap, survivors in weight order)
-            for float64;
+            for float64 and the Kinect model;
   weight    the MAP-estimate weight inputs per particle, then the
             association beam over all particles (slam/beam_kernel.py);
   normalise logsumexp with a NaN guard, then the ESS test and systematic
@@ -77,12 +78,16 @@ class PHDParams(NamedTuple):
     min_effective_particle: torch.Tensor
     visibility_ramp: torch.Tensor  # [D]
     dt: torch.Tensor  # frame time (scales motion noise)
+    depth_map: torch.Tensor  # [H, W] live depth for Kinect visibility (a
+    # [1, 1] +inf map for models without depth occlusion)
 
 
 def make_params(*, dtype=torch.float32, device="cuda", **fields):
     """PHDParams from numbers or arrays; the motion factor is computed on the
-    host in float64 from motion_cov."""
+    host in float64 from motion_cov; depth_map defaults to a [1, 1] +inf
+    map."""
     dev = resolve_device(device)
+    fields.setdefault("depth_map", np.full((1, 1), np.inf))
     vals = {
         name: torch.as_tensor(np.asarray(v, np.float64), dtype=dtype, device=dev)
         for name, v in fields.items()
@@ -183,9 +188,8 @@ def _correct_prune_soa(model, cfg, params, pose, pred: SGM, zl, z_mask):
     # --- per-component EKF precompute (:857-870) -----------------------------
     h = model.measure_soa(mp, pose, mean)  # D x [P, K']
     nd = len(h)
-    pd_k = torch.where(
-        alive, model.fuzzy_visible_soa(mp, h, params.visibility_ramp) * params.pd, zero
-    )
+    fuzzy = model.fuzzy_visible_soa_fn(params.depth_map)
+    pd_k = torch.where(alive, fuzzy(mp, h, params.visibility_ramp) * params.pd, zero)
     pd_k = torch.clamp(pd_k, 0.0, 1.0 - 1e-7)
     miss_logw = torch.where(alive, pred.logw + torch.log1p(-pd_k), dead)
 
@@ -328,7 +332,7 @@ def weight_inputs(model, cfg, params, pose, predicted: SGM, corrected: SGM, z, z
 
     # gated association log-likelihood [P, E, M] (PHDNavigator.cs:415-453)
     mu = model.measure_soa(mp, pose, jmeans)
-    pdv = model.fuzzy_visible_soa(mp, mu, params.visibility_ramp) * params.pd
+    pdv = model.fuzzy_visible_soa_fn(params.depth_map)(mp, mu, params.visibility_ramp) * params.pd
     pdv = torch.clamp(pdv, 1e-30, 1.0 - 1e-7)
     log_pd, log_miss = torch.log(pdv), torch.log1p(-pdv)
     r = smallmat.from_tensor(params.meas_cov)
@@ -405,24 +409,33 @@ def make_slam_step(model, cfg: PHDConfig, slam: bool = True, kernels=None):
     particle, as the JAX step receives it under the smoother's vmap over
     leave-block-out passes (loopy.cavity_maps).
 
-    kernels chooses the births + correct + prune stage and the beam:
-      None   float32 state -> fused_kernel.fused_stage and
-             beam_kernel.beam_scan_batch (each its CUDA kernel for CUDA
-             tensors, its plain version for CPU tensors); float64 state ->
-             the XLA-semantics functions above and the plain beam, on
-             whichever device the tensors are;
+    kernels chooses the births + correct + prune stage and the beam, as the
+    JAX step's pallas_correct / pallas_beam defaults do (phd.py:521-534):
+      None   the fused stage (fused_kernel.fused_stage) where
+             fused_kernel.supported(model, dtype) holds, else the
+             XLA-semantics functions above; the beam kernel
+             (beam_kernel.beam_scan_batch) for every float32 SLAM step,
+             else the plain beam. A wrapper launches its CUDA kernel for
+             CUDA tensors and runs its plain version for CPU tensors. So the
+             Kinect model in float32 takes the beam kernel and not the
+             fused one;
       False  the XLA-semantics functions and the plain beam for any dtype
-             (the tests' oracle);
-      True   the kernels; a float64 state raises."""
+             and model (the tests' oracle);
+      True   both kernels; a float64 state or a model the fused stage does
+             not support raises."""
     n_words = (cfg.estimate_cap + 31) // 32
-    d = model.meas_dim
-    packed = [None, None]  # the last params seen and their fused-kernel vector
+    packed = [None, None]  # the params seen last and their fused-kernel vector
 
     def step(params, state, odometry, z, z_mask, motion_normals, resample_u, true_pose=None):
         f32 = state.pose.dtype == torch.float32
-        if kernels and not f32:
-            raise ValueError("the kernels are float32 only; this state is " + str(state.pose.dtype))
-        use_kernels = f32 if kernels is None else bool(kernels)
+        fused_ok = fused_kernel.supported(model, state.pose.dtype)
+        if kernels and not (f32 and fused_ok):
+            raise ValueError(
+                f"the kernels are float32 only and take no depth-occlusion model; this step has "
+                f"{state.pose.dtype} and the {model.name} model"
+            )
+        use_fused = fused_ok if kernels is None else bool(kernels)
+        use_beam = f32 if kernels is None else bool(kernels)
         with record_function("phd.predict"):
             state = predict_poses(model, params, state, odometry, motion_normals, slam, true_pose)
             if cfg.meas_compact and cfg.meas_compact < cfg.max_measurements:
@@ -431,14 +444,18 @@ def make_slam_step(model, cfg: PHDConfig, slam: bool = True, kernels=None):
                 order = live_first(z_mask, cfg.meas_compact)
                 z, z_mask = z[order], z_mask[order]
         with record_function("phd.fused_stage"):
-            if use_kernels:
-                if packed[0] is not params:
+            if use_fused:
+                # kept while every field but the depth map is the same
+                # tensor: the vector holds no depth, and a params re-bound
+                # with a new depth map only is not packed again
+                last = packed[0]
+                if last is None or any(x is not y for x, y in zip(params[:-1], last[:-1])):
                     packed[:] = params, fused_kernel.pack_params(model, params)
                 predicted, corrected = fused_kernel.fused_stage(
                     model, cfg, params, state.pose, state.maps, z, z_mask, packed[1]
                 )
             else:
-                zl = [z[:, i] for i in range(d)]
+                zl = [z[:, i] for i in range(model.meas_dim)]
                 births = _births_soa(model, params, state.pose, state.maps, zl, z_mask)
                 predicted = mixture.concat_soa(state.maps, births)
                 corrected = _correct_prune_soa(model, cfg, params, state.pose, predicted, zl, z_mask)
@@ -454,7 +471,7 @@ def make_slam_step(model, cfg: PHDConfig, slam: bool = True, kernels=None):
                 model, cfg, params, state.pose, predicted, corrected, z, z_mask
             )
         with record_function("phd.beam_scan"):
-            beam = beam_kernel.beam_scan_batch if use_kernels else association.beam_scan
+            beam = beam_kernel.beam_scan_batch if use_beam else association.beam_scan
             scores = beam(base, od, wk, bk, cfg.beam_width, n_words)
         with record_function("phd.normalise_resample"):
             return _normalise_resample(params, state, corrected, scores, rest, resample_u)
@@ -493,7 +510,9 @@ def _correct(model, cfg, params, pose, predicted: GM, z, z_mask):
 
     h = model.measure(model.params, pose[None, :], predicted.mean)  # [K', D]
     pd_k = torch.where(
-        alive, model.fuzzy_visible_fn()(model.params, h, params.visibility_ramp) * params.pd, zero
+        alive,
+        model.fuzzy_visible_fn(params.depth_map)(model.params, h, params.visibility_ramp) * params.pd,
+        zero,
     )
     pd_k = torch.clamp(pd_k, 0.0, 1.0 - 1e-7)
 

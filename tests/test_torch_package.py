@@ -1,5 +1,6 @@
 """The port stands alone: monorfs_tpu_torch/ and chip_smoke.py import
-neither jax nor monorfs_tpu (AST scan), and chip_smoke.py fails with no
+neither jax nor monorfs_tpu, nor PIL, which the GPU machine lacks (AST scan,
+imports inside functions included), and chip_smoke.py fails with no
 result without a GPU or without the rest of the repository. The kernel
 build reports only its own logs."""
 
@@ -14,7 +15,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "monorfs_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "monorfs_tpu")
+FORBIDDEN = ("jax", "jaxlib", "monorfs_tpu", "PIL")
 
 
 def _imports(path):

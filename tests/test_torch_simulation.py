@@ -166,30 +166,48 @@ def test_in_band_mode_switch():
     assert sim.frames[4]["best"] == 0
 
 
+class _Frames:
+    """Three frames of a flat grey scene at 1 m, the dataset a Kinect source reads."""
+
+    def __len__(self):
+        return 3
+
+    def frame(self, i):
+        return float(i), np.ones((60, 80), np.float32), np.full((60, 80), 90, np.uint8)
+
+
 @pytest.mark.parametrize("algorithm", ["loopy"])
 def test_unported_algorithms_raise(algorithm):
-    """Every algorithm is ported now (the smoother has its own file,
-    test_torch_loopynav.py); what stays unported is the Kinect input, which
-    every algorithm refuses, and an unknown algorithm raises ValueError."""
+    """Every algorithm and input is ported now (the smoother has its own
+    file, test_torch_loopynav.py, the Kinect input test_torch_kinect.py):
+    a Kinect source is taken by every algorithm, with a zero command per
+    frame, and what still raises is an unknown algorithm (ValueError)."""
+    from monorfs_tpu_torch.frontend.kinect import KinectSource
+
     world = World.from_file("assets/linear2d.world")
     cfg = _configs()[1]
     assert Simulation(cfg, world, [], algorithm=algorithm, device="cpu").algorithm == algorithm
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Simulation(cfg, world, [], algorithm=algorithm, kinect_source=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        cli.main(["-f", "assets/tum_real", "-i", "kinect", "-a", algorithm, "--device", "cpu"])
+    sim = Simulation(cfg, world, [], algorithm=algorithm, device="cpu",
+                     kinect_source=KinectSource(_Frames(), delta=1, device="cpu"))
+    assert sim.max_meas == 64 and len(sim.commands) == 3 and not np.any(sim.commands)
     with pytest.raises(ValueError):
         Simulation(cfg, world, [], algorithm=algorithm + "x", device="cpu")
 
 
-def test_unported_inputs_raise():
-    with pytest.raises(NotImplementedError, match="kinect"):
+def test_unported_inputs_raise(tmp_path):
+    """-i kinect reads a converted .npz (an unconverted TUM directory is
+    refused by NumPy), and runs; a 10-value measurer descriptor is the Kinect
+    model; an unknown algorithm raises ValueError."""
+    with pytest.raises(IsADirectoryError):
         cli.main(["-f", "assets/tum_real", "-i", "kinect", "--device", "cpu"])
+    from monorfs_tpu_torch.frontend.dataset import convert_tum
+
+    seq = convert_tum("assets/tum_real", str(tmp_path / "seq.npz"), max_frames=3)
+    assert cli.main(["-f", seq, "-i", "kinect", "-a", "odometry", "--device", "cpu",
+                     "-r", str(tmp_path / "k.zip")]) == 0
+    assert Recording.load(tmp_path / "k.zip").sidebar
     world = World(pose=np.array([0, 0, 0, 1, 0, 0, 0.0]), landmarks=np.zeros((0, 3)),
                   measurer_params=np.arange(10.0))
-    with pytest.raises(NotImplementedError, match="Kinect"):
-        Simulation(Config(), world, [], device="cpu")
+    assert Simulation(Config(), world, [], device="cpu").model.name == "Kinect"
     with pytest.raises(ValueError):
         Simulation(Config(), World.from_file("assets/sim3d.world"), [], algorithm="ekf", device="cpu")
-    with pytest.raises(NotImplementedError):
-        Simulation(Config(), World.from_file("assets/sim3d.world"), [], kinect_source=object(), device="cpu")

@@ -361,3 +361,130 @@ class LoopyCase:
     def port_state(self, jstate):
         """The JAX LoopyState as the port's (convert.loopy_state)."""
         return convert.loopy_state(fields(jstate), dtype=getattr(torch, self.dtype), device="cpu")
+
+
+# -- RGB-D frontend ---------------------------------------------------------
+
+# A LATCH bit whose two patch SSDs tie within float32 rounding of a 49-term
+# sum (twice its worst case, 49 x 2^-24 relative) may come out either way:
+# the port sums in float32 in its own order, the JAX function in XLA's
+# (float64 under x64, and differently jitted than eager).
+LATCH_TIE_RTOL = 49 * 2.0 ** -23
+
+
+class JaxDraws:
+    """RANSAC's sample rows as the JAX KinectSource draws them: one key
+    split a filtered frame, 64 hypothesis keys, jax.random.categorical over
+    the matched rows (logits where(mask, 0, -1e9))."""
+
+    def __init__(self, seed=0):
+        self.key = jax.random.PRNGKey(seed)
+
+    def __call__(self, mask, iterations):
+        self.key, sub = jax.random.split(self.key)
+        logits = jnp.where(jnp.asarray(mask.cpu().numpy()), 0.0, -1e9)
+        keys = jax.random.split(sub, iterations)
+        idx = jax.vmap(lambda k: jax.random.categorical(k, logits, shape=(4,)))(keys)
+        return torch.tensor(np.asarray(idx), dtype=torch.long, device=mask.device)
+
+
+def latch_ties(ssd_pairs, img, xy, desc, jdesc):
+    """The number of bits where the port's descriptors `desc` differ from
+    the JAX ones `jdesc`; raises unless each is a tie within LATCH_TIE_RTOL
+    of the port's own SSDs."""
+    diff = np.unpackbits(np.asarray(desc), axis=1) != np.unpackbits(np.asarray(jdesc), axis=1)
+    rows, bits = np.nonzero(diff)
+    if len(rows):
+        a, c = (t.numpy()[rows, bits] for t in ssd_pairs(img, xy))
+        gap = np.abs(a - c) / np.maximum(np.maximum(a, c), 1e-30)
+        assert (gap <= LATCH_TIE_RTOL).all(), list(zip(rows, bits, a, c))
+    return len(rows)
+
+
+class FollowJaxTies:
+    """Runs a port KinectSource on the JAX source's tie decisions: wraps the
+    JAX source's measure to keep each frame's keypoints and descriptors, and
+    replaces the port's latch.describe (install with monkeypatch) by one that
+    checks its own descriptors against the JAX frame's (the same keypoints;
+    differing bits only at ties) and then returns the JAX ones."""
+
+    def __init__(self, jsrc, tlatch):
+        self.frames, self.flips, self.real = [], 0, tlatch.describe
+        self.tlatch = tlatch
+        measure = jsrc.measure
+
+        def recorded(i):
+            out = measure(i)
+            self.frames.append((np.asarray(jsrc.prev.xy), np.asarray(jsrc.prev.desc)))
+            return out
+
+        jsrc.measure = recorded
+
+    def describe(self, img, xy, valid):
+        desc = self.real(img, xy, valid)
+        jxy, jdesc = self.frames.pop(0)
+        np.testing.assert_array_equal(xy.cpu().numpy(), jxy)
+        self.flips += latch_ties(self.tlatch.ssd_pairs, img, xy, desc.cpu().numpy(), jdesc)
+        return torch.tensor(jdesc, device=desc.device)
+
+
+def jax_ransac(src, dst, mask, idx, tolerance=3.0):
+    """monorfs_tpu.frontend.matching.ransac_homography with the hypotheses'
+    sample rows `idx` [I, 4] given instead of drawn from a key (the same
+    functions, vmapped the same way). Returns (inlier mask, counts [I])."""
+    from monorfs_tpu.frontend import matching as jm
+
+    n_valid = jnp.maximum(jnp.sum(mask), 1)
+
+    def hypothesis(i):
+        err = jnp.linalg.norm(jm._project(jm._homography_dlt(src[i], dst[i]), src) - dst, axis=1)
+        inliers = mask & (err < tolerance)
+        return jnp.sum(inliers), inliers
+
+    counts, sets = jax.vmap(hypothesis)(idx)
+    best = jnp.argmax(counts)
+    return jnp.where(counts[best] >= jnp.minimum(4, n_valid), sets[best], mask), counts
+
+
+# a hypothesis whose DLT system's two smallest singular values are this close
+# (relative to the largest, in float64) has no null vector that float32
+# arithmetic determines: its homography depends on the SVD implementation
+DLT_ILL_CONDITIONED = 1e-4
+
+
+def _dlt_conditioning(src, dst):
+    """sigma_8 / sigma_1 of the 8 x 9 DLT system of four point pairs."""
+    rows = []
+    for (x, y), (u, v) in zip(src, dst):
+        rows += [[-x, -y, -1, 0, 0, 0, u * x, u * y, u], [0, 0, 0, -x, -y, -1, v * x, v * y, v]]
+    s = np.linalg.svd(np.asarray(rows, np.float64), compute_uv=False)
+    return s[-2] / s[0]
+
+
+class FollowJaxRansac:
+    """Runs the port's RANSAC on the JAX package's decisions (install over
+    monorfs_tpu_torch.frontend.matching.ransac_homography with monkeypatch):
+    each call computes the port's inlier mask and JAX's on the same sample
+    rows, checks that every hypothesis on which their inlier counts differ
+    is ill-conditioned in float32 (DLT_ILL_CONDITIONED: the unnormalised
+    four-point DLT of both packages), and returns JAX's mask."""
+
+    def __init__(self, tmatching):
+        self.real, self.tm = tmatching.ransac_homography, tmatching
+        self.calls, self.differ = 0, 0
+
+    def __call__(self, src, dst, mask, idx, tolerance=3.0):
+        mine = self.real(src, dst, mask, idx, tolerance).cpu().numpy()
+        s, d, m, i = (np.asarray(t.cpu().numpy()) for t in (src, dst, mask, idx))
+        theirs, jcounts = jax_ransac(jnp.asarray(s), jnp.asarray(d), jnp.asarray(m), jnp.asarray(i), tolerance)
+        theirs = np.asarray(theirs)
+        self.calls += 1
+        if not np.array_equal(mine, theirs):
+            self.differ += 1
+            h = self.tm._homography_dlt(src[idx], dst[idx])
+            err = torch.linalg.norm(self.tm._project(h, src) - dst[None], dim=-1)
+            counts = (mask[None] & (err < tolerance)).sum(1).cpu().numpy()
+            for k in np.nonzero(counts != np.asarray(jcounts))[0]:
+                cond = _dlt_conditioning(s[i[k]], d[i[k]])
+                assert cond < DLT_ILL_CONDITIONED, (k, i[k], counts[k], int(jcounts[k]), cond)
+        return torch.tensor(theirs, device=src.device)
