@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Smoke run of the PyTorch/CUDA port (monorfs_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--parent DIR] [--phases kernels,bench,sync,cli,graph,loopy,kinect]
+    python3 chip_smoke.py [--parent DIR] [--phases kernels,bench,sync,cli,graph,loopy,kinect,grid]
 
 Phases, one line each; any failure exits non-zero:
   1. device, `nvidia-smi` name and power limit, kernel build (nvcc, sm_90a);
@@ -33,10 +33,11 @@ Phases, one line each; any failure exits non-zero:
   7. `graph`: the graph backend at full width (3D asset world, 40
      landmarks, 300 frames: 302 poses, 160 landmark slots, 48 measurement
      slots, 14,496 factor slots in the host navigator). `cli.main -a isam2`
-     then postanalysis, twice, with identical ATE, OSPA and landmark count
-     and both under their limits; `-i record -a isam2` over phase 6's PHD
-     recording (its own recording when phase 6 did not run); one Linear2D
-     `-a isam2` run; a 60-frame mapping-only run (ATE exactly 0);
+     then postanalysis, under its limits; `-i record -a isam2` over phase
+     6's PHD recording (its own recording when phase 6 did not run); the
+     3D command again twice over its first REPEAT_FRAMES frames, with
+     identical ATE, OSPA and landmark count; a Linear2D `-a isam2` run; a
+     60-frame mapping-only run (ATE exactly 0);
      `bench_isam2 --scan` and `--scan-da` over 300 frames (ATE, landmarks
      against the world's 40, OSPA); and the host synchronisations per frame
      of the navigator and of each scan runner, counted under
@@ -72,9 +73,25 @@ Phases, one line each; any failure exits non-zero:
      and `-a odometry` over the converted sequence, postanalysis on each,
      and the recording's sidebar.avi: one baseline JPEG a frame at the
      subsampled image's size.
-Cuts for the time limit: phase 8 runs the port's own s2 recording once (the
-repeat runs on the JAX recording) and its 3D run to LOOPY_BUDGET_S. Nothing
-of phases 2-7 was cut: phase 4 still runs all 300 frames.
+ 10. `grid`: the experiment grids. Both kernels at the grid's shapes against
+     their plain versions: the beam bit for bit at the command line's shape
+     (B=200, C=8, 4 words, 48 slots) with 800 and 2000 particles and at
+     bench_scaling's (B=32, C=6, 24 steps) with 10,000, on random and
+     tie-heavy options; the fused kernel to compare_fused's tolerances at
+     chap3-default.cfg's capacity (K0=500, 48 slots) with 800 particles and
+     at bench_scaling's shape (K0=128, 48 slots, 4 merge rounds) with
+     10,000; each timed, with the launch's peak device memory. Then
+     run_gpu_grid chap3-s1 (800 particles, float32, all 300 frames: 300
+     launches of each kernel over the phd leg, none over the odometry replay,
+     ATE / OSPA under GRID_S1), run_gpu_grid.throughput at 200 and 2000
+     particles and bench_scaling at 10,000 (frames/s, particle updates/s,
+     peak memory, ATE under the bench limit), and summarize over the
+     phase's outdir (the rows there, chap3-s1 phd held against the JAX
+     package's row).
+Cuts for the time limit: phase 7 repeats the 3D `-a isam2` command over its
+first REPEAT_FRAMES of 300 frames; phase 8 runs the port's own s2 recording once
+(the repeat runs on the JAX recording) and its 3D run to LOOPY_BUDGET_S.
+Phase 4 still runs all 300 frames.
 
 A kernel's time is its device time: torch.profiler's CUDA kernel events
 selected by the kernel's name, their mean over the launches. The wrapper's wall
@@ -105,13 +122,15 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from monorfs_tpu_torch import _build, bench_isam2, cli, experiments_kinect, native, postanalysis
+from monorfs_tpu_torch import _build, bench_isam2, bench_scaling, cli, experiments_kinect, native, postanalysis
 from monorfs_tpu_torch.bench import BENCH_CONFIG, run as run_bench
 from monorfs_tpu_torch.config import Config
+from monorfs_tpu_torch.experiments import run_experiments, run_gpu_grid, summarize
 from monorfs_tpu_torch.frontend.dataset import RGBDDataset, convert_tum
 from monorfs_tpu_torch.gm.mixture import DEAD, SGM
 from monorfs_tpu_torch.io import Recording, World, parse_commands
 from monorfs_tpu_torch.io.avi import jpeg_size, read_mjpeg
+from monorfs_tpu_torch.kernel_bounds import beam_bound, fused_bound
 from monorfs_tpu_torch.kernel_cases import beam_ties, fused_state
 from monorfs_tpu_torch.models import PRM3D
 from monorfs_tpu_torch.models import get as get_model
@@ -123,8 +142,6 @@ from monorfs_tpu_torch.slam.isam2_scan import build_isam2_scan_runner, scan_draw
 from monorfs_tpu_torch.slam.isam2_scan_da import build_mahalanobis_scan
 from monorfs_tpu_torch.slam.phd import PHDConfig
 
-HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
-FP32_OPS_S = 67e12  # H100 SXM fp32 outside the tensor cores
 ATE_LIMIT = 0.03  # ~3x the JAX package's 0.0108 on this config
 BENCH_FRAMES = 300  # the whole of mov3d.in
 BEAM_KERNEL = "beam_scan"  # substring of every beam kernel's name
@@ -133,11 +150,6 @@ FUSED_KERNEL = "fused_stage_kernel"
 
 def say(phase, **kv):
     print(json.dumps({"phase": phase, **kv}), flush=True)
-
-
-def bound(nbytes, ops):
-    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / FP32_OPS_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def cuda_ms(fn, reps):
@@ -246,19 +258,6 @@ def beam_check(name, inputs, b, n_words):
                                                          C=inputs[1].shape[2] - 1, B=b, n_words=n_words))
 
 
-def beam_bound(inputs, b):
-    """(bound ms, bound by) of one beam launch on these inputs."""
-    base, od, wk, bk = inputs
-    p, m, c1 = od.shape
-    c = c1 - 1
-    nbytes = 4 * (base.numel() + od.numel() + wk.numel() + bk.numel() + p * b)
-    nc = b * c1
-    # per step, what a top-B selection needs: nc candidate sums, B*C used-set
-    # ANDs, and nc + B*log2(nc) compares to pick the best B in order
-    ops = p * m * (nc + b * c + nc + b * int(np.ceil(np.log2(nc))))
-    return bound(nbytes, ops)
-
-
 def beam_phase(dev, parent):
     p, n, m, c, b = 200, BENCH_CONFIG.estimate_cap, BENCH_CONFIG.beam_meas_cap, \
         BENCH_CONFIG.beam_candidates, BENCH_CONFIG.beam_width
@@ -327,51 +326,64 @@ def warm_state(seed, p, k0, m, n_lm, dev, merge_ties=False, model="PRM3D"):
             torch.tensor(z, dtype=torch.float32, device=dev), torch.tensor(z_mask, device=dev))
 
 
+def _close(a, b, rtol, atol, rows, what, bad):
+    """Record in `bad` (what -> the first failing particle) where a differs
+    from b beyond atol + rtol * |b| on the particles in `rows` [P]."""
+    off = rows & ~(torch.abs(a - b) <= atol + rtol * torch.abs(b)).all(-1)
+    bad.append((what, off))
+
+
 def compare_fused(pred, cor, pred_ref, cor_ref):
     """Raises unless the kernel's output matches the plain version's within
-    the stated tolerances; returns the largest absolute difference seen."""
+    the stated tolerances; returns the largest absolute difference seen.
+
+    Predicted maps: every leaf within rtol / atol 2e-5 (weights of live
+    components only). Corrected maps, per particle: as many live components
+    as the plain version, the weights in weight order within 1e-4, and each
+    component in weight order matched to the nearest unused plain component,
+    means within 1e-4, covariances within rtol 1e-3 / atol 1e-5 (the
+    tolerances of tests/test_fused_pallas.py). All particles at once on the
+    device, one component rank a step."""
     err = 0.0
     live = pred_ref.logw > DEAD / 4
     for name, a, b in zip(SGM._fields, pred, pred_ref):
         a, b = (a[live], b[live]) if name == "logw" else (a, b)
         torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5, msg=f"predicted {name}")
         err = max(err, (a - b).abs().max().item())
-    got, ref = [torch.stack(list(s), -1).cpu().numpy() for s in (cor, cor_ref)]
-    for i in range(got.shape[0]):
-        gk, rk = got[i][got[i][:, 9] > DEAD / 4], ref[i][ref[i][:, 9] > DEAD / 4]
-        if len(gk) != len(rk):
-            raise AssertionError(f"particle {i}: {len(gk)} components vs plain {len(rk)}")
-        gk, rk = gk[np.argsort(-gk[:, 9], kind="stable")], rk[np.argsort(-rk[:, 9], kind="stable")]
-        np.testing.assert_allclose(gk[:, 9], rk[:, 9], rtol=1e-4, atol=1e-4)
-        used = np.zeros(len(rk), bool)
-        for j in range(len(gk)):
-            jj = int(np.argmin(np.linalg.norm(rk[:, :3] - gk[j, :3], axis=-1) + np.where(used, 1e9, 0)))
-            used[jj] = True
-            np.testing.assert_allclose(gk[j, :3], rk[jj, :3], rtol=1e-4, atol=1e-4)
-            np.testing.assert_allclose(gk[j, 3:9], rk[jj, 3:9], rtol=1e-3, atol=1e-5)
-            err = max(err, float(np.abs(gk[j] - rk[jj]).max()))
-    return err
+    got, ref = [torch.stack(list(s), -1) for s in (cor, cor_ref)]  # [P, K, 10]
+    g_live, r_live = got[..., 9] > DEAD / 4, ref[..., 9] > DEAD / 4
+    n, n_ref = g_live.sum(1), r_live.sum(1)
+    if (n != n_ref).any():
+        i = int(torch.nonzero(n != n_ref)[0, 0])
+        raise AssertionError(f"particle {i}: {int(n[i])} components vs plain {int(n_ref[i])}")
 
+    def by_weight(x, alive):  # live components first, by weight, ties in slot order
+        key = torch.where(alive, x[..., 9], torch.full_like(x[..., 9], -float("inf")))
+        idx = torch.sort(key, dim=1, descending=True, stable=True).indices
+        return torch.gather(x, 1, idx[..., None].expand_as(x))
 
-def fused_ops(maps, pred, z_mask, cor, params, m):
-    """fp32 operations this data needs (a lower count): density terms of the
-    live map components, the EKF of live predicted components, every gate
-    test and the likelihood of in-gate pairs, the cut's counts (one, or 31
-    when the cap may bind), the merge relation over surviving pairs."""
-    k0 = maps.logw.shape[1]
-    kp = k0 + m
-    alive0 = (maps.logw > DEAD / 2).sum(1)
-    alive = pred.logw > DEAD / 2
-    bp = [leaf[:, k0:] for leaf in pred[:3]]
-    d2 = sum((b[:, :, None] - mm[:, None, :]) ** 2 for b, mm in zip(bp, pred[:3]))
-    rows = z_mask if z_mask.dim() == 2 else z_mask[None, :]  # [M] or one mask per particle
-    in_gate = (d2 <= params.density_radius ** 2) & alive[:, None, :] & rows[:, :, None]
-    n_gate = in_gate.sum((1, 2))
-    counts = torch.where(alive.sum(1) + n_gate > k0, 31, 1)
-    n_out = (cor.logw > DEAD / 2).sum(1)
-    ops = (alive0 * m * 30 + alive.sum(1) * 250 + m * kp * 8 + n_gate * 35
-           + counts * (kp + m * kp) + n_out * (n_out - 1) // 2 * 25)
-    return int(ops.sum().item())
+    g, r = by_weight(got, g_live), by_weight(ref, r_live)
+    p, k = g.shape[:2]
+    slot = torch.arange(k, device=g.device)[None, :] < n[:, None]
+    off = slot & ~(torch.abs(g[..., 9] - r[..., 9]) <= 1e-4 + 1e-4 * torch.abs(r[..., 9]))
+    bad = [("weights", off.any(1))]
+    used = ~slot
+    rows = torch.arange(p, device=g.device)
+    worst = torch.zeros((), dtype=g.dtype, device=g.device)
+    for j in range(int(n.max()) if p else 0):
+        act = j < n
+        d = torch.linalg.norm(r[..., :3] - g[:, j : j + 1, :3], dim=-1) + torch.where(used, 1e9, 0.0)
+        jj = torch.argmin(d, dim=1)
+        used[rows[act], jj[act]] = True
+        m = r[rows, jj]
+        _close(g[:, j, :3], m[:, :3], 1e-4, 1e-4, act, f"means of rank {j}", bad)
+        _close(g[:, j, 3:9], m[:, 3:9], 1e-3, 1e-5, act, f"covariances of rank {j}", bad)
+        worst = torch.maximum(worst, torch.where(act, (g[:, j] - m).abs().amax(1), 0.0).max())
+    for what, off in bad:
+        if off.any():
+            i = int(torch.nonzero(off)[0, 0])
+            raise AssertionError(f"particle {i}: corrected {what} differ from the plain version's")
+    return max(err, float(worst))
 
 
 def phase_split(args):
@@ -386,15 +398,6 @@ def phase_split(args):
     total = d.sum(1)
     split["total"] = [float(np.median(total)), int(total.max())]
     return split
-
-
-def fused_bound(p, k0, m, d, s_dim, maps, pred, z_mask, cor, params):
-    """(bound ms, bound by) of one fused launch: every input read once and
-    every output written once against this data's operation count."""
-    kp = k0 + m
-    nbytes = 4 * (10 * p * k0 + s_dim * p + d * m + z_mask.numel() + 16 + d + d * d + 10 * p * kp
-                  + 10 * p * k0)
-    return bound(nbytes, fused_ops(maps, pred, z_mask, cor, params, m))
 
 
 def model_phd_params(name, dev):
@@ -639,6 +642,11 @@ def cli_phase(dev, kernels, tmp):
 # package's own test bounds (tests/test_isam2_scan_da.py: ATE below 0.08, at
 # most 6 landmarks beyond the world's) and phase 6's 3D map limit.
 ISAM2_3D = (2 * 0.00465604, 2 * 0.00508514)
+# The repeat of the 3D command, cut to its first REPEAT_FRAMES frames: the
+# trajectory under the whole run's ATE limit; the map then holds only the
+# landmarks seen so far, so its OSPA is held under the cutoff of 1 only.
+REPEAT_FRAMES = 100
+ISAM2_3D_CUT = (ISAM2_3D[0], 0.9)
 ISAM2_2D = (0.6, 0.6)
 # Mapping-only pins every pose: ATE exactly 0. With all poses pinned the
 # navigator of both packages stops minting landmarks early on this world (a
@@ -717,20 +725,24 @@ def graph_phase(dev, kernels, tmp):
         return row["ate"], row["ospa"], len(rec.maps[-1][1])
 
     first = run("3d-isam2", world3d + ["-a", "isam2"], 300, ISAM2_3D)
-    second = run("3d-isam2-again", world3d + ["-a", "isam2"], 300, ISAM2_3D)
-    if first != second:
-        raise AssertionError(f"two runs of the same -a isam2 command differ: {first} and {second}")
     if abs(first[2] - 40) > SCAN_DA_EXTRA:
         raise AssertionError(f"-a isam2 mapped {first[2]} landmarks of the world's 40")
-    say("graph-deterministic", ate=first[0], ospa=first[1], landmarks=first[2], identical=True)
 
     source = tmp / "3d-slam.zip"  # phase 6's PHD recording
     if not source.exists():
         source = tmp / "3d-isam2.zip"
     replay = run("3d-replay-isam2", ["-f", str(source), "-i", "record", "-a", "isam2"], 300, ISAM2_3D)
     say("graph-replay", source=source.name, ate=replay[0], ospa=replay[1], landmarks=replay[2])
-    run("2d-isam2", ["-f", str(assets / "linear2d.world"), "-c", str(assets / "mov2d.in"), "-a", "isam2"],
-        270, ISAM2_2D)
+    # the same 3D command twice, identical, cut to REPEAT_FRAMES for the time limit
+    cut = world3d + ["-a", "isam2", "--frames", str(REPEAT_FRAMES)]
+    once = run("3d-isam2-cut", cut, REPEAT_FRAMES, ISAM2_3D_CUT)
+    again = run("3d-isam2-cut-again", cut, REPEAT_FRAMES, ISAM2_3D_CUT)
+    if once != again:
+        raise AssertionError(f"two runs of the same -a isam2 command differ: {once} and {again}")
+    say("graph-deterministic", world="sim3d", frames=REPEAT_FRAMES, ate=once[0], ospa=once[1],
+        landmarks=once[2], identical=True)
+    world2d = ["-f", str(assets / "linear2d.world"), "-c", str(assets / "mov2d.in"), "-a", "isam2"]
+    run("2d-isam2", world2d, 270, ISAM2_2D)
     mapping = run("3d-isam2-mapping", world3d + ["-a", "isam2", "-y", "--frames", "60"], 60, ISAM2_MAPPING)
     if mapping[2] == 0:
         raise AssertionError("-a isam2 -y mapped no landmark")
@@ -787,8 +799,9 @@ JAX_S2_RECORDING = pathlib.Path(__file__).resolve().parent / "tests" / "data" / 
 #       -> ATE loc RMSE 0.00748151, final OSPA 0.0830064 (181 s).
 LOOPY_3D = (2 * 0.00748151, 0.0830064 + 0.1)
 # The 3D run is cut to this many seconds (estimated from the s2 run's seconds
-# a node; a 3D node costs 2.8 2D nodes, PERF.md section 5: 426 vs 152 ms).
-LOOPY_BUDGET_S = 80.0
+# a node; a 3D node costs 2.8 2D nodes, PERF.md section 5: 426 vs 152 ms), so
+# that the whole script, the grid phase included, stays within 1000 s.
+LOOPY_BUDGET_S = 60.0
 LOOPY_3D_NODE_COST = 2.8
 CHAP5_CFG = pathlib.Path(__file__).resolve().parent / "experiments" / "configs" / "chap5-default2d.cfg"
 
@@ -944,7 +957,7 @@ def loopy_phase(dev, kernels, tmp):
     if per_node_s * frames > LOOPY_BUDGET_S:
         frames = int(LOOPY_BUDGET_S / per_node_s)
         say("loopy-3d-cut", frames=frames, of=300, budget_s=LOOPY_BUDGET_S,
-            reason="the whole run's time limit, with phase 9 added")
+            reason="the whole run's time limit, with phases 9 and 10 added")
     tally(run_loopy_cli("3d-loopy", ["-f", str(source), "-i", "record", "-a", "loopy",
                                      "--frames", str(frames)], LOOPY_3D, tmp / "3d-loopy.zip"))
 
@@ -1120,12 +1133,172 @@ def kinect_phase(dev, kernels, tmp):
         k.setdefault("launches_by_path", {})["kinect"] = total[k["name"]]
 
 
+# ---- phase 10: the experiment grids ---------------------------------------------------
+
+# Limits of run_gpu_grid chap3-s1 (800 particles, float32): twice the JAX
+# package's TPU float32 row's ATE and its OSPA + 0.1 (experiments/out-tpu/
+# SUMMARY.md: phd ATE 0.02023, OSPA 0.08123), the repo's convention.
+GRID_S1 = (2 * 0.02023, 0.08123 + 0.1)
+GRID_S1_PARTICLES, GRID_S1_FRAMES = 800, 300
+GRID_THROUGHPUT = (200, 2000)  # of run_gpu_grid.throughput's sweep
+SCALING_P = 10000  # bench_scaling's largest default count
+GRID_BUDGET_S = 150.0  # the phase's share of the script's time, printed beside its seconds
+CHAP3_CFG = pathlib.Path(__file__).resolve().parent / "experiments" / "configs" / "chap3-default.cfg"
+BEAM_ROW = dict(name="beam_scan", route="cuda", source="monorfs_tpu_torch/csrc/beam_scan.cu",
+                replaces="monorfs_tpu/slam/beam_pallas.py:178")
+FUSED_ROW = dict(name="fused_stage", route="cuda", source="monorfs_tpu_torch/csrc/fused_stage.cu",
+                 replaces="monorfs_tpu/slam/fused_pallas.py:621")
+
+
+def grid_beam(dev, kernels, name, p, b, c, n_lm, m, seed):
+    """The beam kernel against its plain version at one of the grid's
+    shapes, bit for bit on random and tie-heavy options; timed."""
+    inputs, n_words = beam_random(dev, seed, p, n_lm, m, c)
+    beam_check(name, inputs, b, n_words)
+    beam_check(name + "-ties", [torch.as_tensor(x, device=dev) for x in beam_ties(seed + 1, p, m, c, n_words)],
+               b, n_words)
+    bms, by = beam_bound(inputs, b)
+    row = dict(case=name, shape=dict(P=p, M=m, C=c, B=b, n_words=n_words), max_abs_err=0.0,
+               bound_ms=bms, bound_by=by,
+               ms=kernel_ms(lambda: beam_kernel.beam_scan_batch(*inputs, b, n_words), 5, BEAM_KERNEL),
+               plain_ms=cuda_ms(lambda: beam_kernel.beam_scan_plain(*inputs, b, n_words), 2))
+    say("beam-shape", **row)
+    shape_row(kernels, "beam_scan", row, BEAM_ROW)
+
+
+def grid_fused(dev, kernels, name, pcfg, params, m, seed):
+    """The fused kernel against its plain version at one of the grid's
+    shapes, to compare_fused's tolerances; timed, with its peak memory."""
+    p, k0 = pcfg.num_particles, pcfg.max_components
+    pose, maps, z, z_mask = warm_state(seed, p, k0, m, 40, dev)
+    args = (PRM3D, pcfg, params, pose, maps, z, z_mask)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    pred, cor = fused_kernel.fused_stage(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    pred_ref, cor_ref = fused_kernel.fused_stage_plain(*args)
+    err = compare_fused(pred, cor, pred_ref, cor_ref)
+    bms, by = fused_bound(p, k0, m, PRM3D.meas_dim, PRM3D.pose.state_dim, maps, pred, z_mask, cor, params)
+    row = dict(case=name, model="PRM3D", shape=dict(P=p, K0=k0, M=m, KP=k0 + m), max_abs_err=err,
+               alive_out=int((cor.logw > DEAD / 2).sum().item()), bound_ms=bms, bound_by=by,
+               pairs_in_device_memory=fused_kernel.pairs_global(k0, m), launch_peak_bytes=peak,
+               ms=kernel_ms(lambda: fused_kernel.fused_stage(*args), 10, FUSED_KERNEL),
+               plain_ms=cuda_ms(lambda: fused_kernel.fused_stage_plain(*args), 2))
+    say("fused-shape", **row)
+    shape_row(kernels, "fused_stage", row, FUSED_ROW)
+
+
+def grid_kernels(dev, kernels):
+    """Both kernels at the grid's shapes: the command line's beam (B=200,
+    C=8, 4 words, 48 slots) at the reference's 800 and 2000 particles, the
+    bench-scaling beam (B=32, C=6, 24 steps) at 10,000; the fused kernel at
+    chap3-default.cfg's capacity (K0=500, 48 slots) with 800 particles and
+    at the scaling shape (K0=128, 48 slots, 4 merge rounds) with 10,000."""
+    default = PHDConfig()
+    for p, seed in ((800, 41), (2000, 43)):
+        grid_beam(dev, kernels, f"grid-P{p}-B{default.beam_width}-C{default.beam_candidates}-W4-M48", p,
+                  default.beam_width, default.beam_candidates, default.estimate_cap, 48, seed)
+    scfg = bench_scaling.scaling_config(SCALING_P)
+    grid_beam(dev, kernels, f"scaling-P{SCALING_P}-B{scfg.beam_width}-C{scfg.beam_candidates}-W2-M{scfg.beam_meas_cap}",
+              SCALING_P, scfg.beam_width, scfg.beam_candidates, scfg.estimate_cap, scfg.beam_meas_cap, 45)
+    cfg = Config.from_file(CHAP3_CFG)
+    s1 = PHDConfig(num_particles=GRID_S1_PARTICLES, max_components=cfg.max_quantity, max_measurements=48)
+    grid_fused(dev, kernels, f"grid-prm3d-P800-K{cfg.max_quantity}-M48", s1, cfg.phd_params(torch.float32, dev),
+               48, 49)
+    grid_fused(dev, kernels, f"scaling-prm3d-P{SCALING_P}-K128-M48", scfg, model_phd_params("PRM3D", dev),
+               scfg.max_measurements, 51)
+
+
+def grid_phase(dev, kernels, tmp):
+    """Phase 10: run_gpu_grid chap3-s1 at 800 particles (launches per leg,
+    the JAX TPU row's limits), throughput at 200 and 2000 particles,
+    bench_scaling at 10,000, then summarize over the phase's outdir."""
+    graph.assert_full_precision()
+    t_phase = time.perf_counter()
+    out = tmp / "out-h100"
+    legs, run_cli_plain = [], run_experiments.run_cli
+
+    def counted(args):
+        reset_launches()
+        seconds = run_cli_plain(args)
+        legs.append(dict(algorithm=args[args.index("-a") + 1], seconds=seconds, launches=read_launches()))
+        return seconds
+
+    run_experiments.run_cli = counted
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            run_gpu_grid.main(["chap3-s1", "--outdir", str(out)])
+    finally:
+        run_experiments.run_cli = run_cli_plain
+    peak = torch.cuda.max_memory_allocated(dev)
+    stats = json.loads((out / "chap3-s1.stats.json").read_text())
+    phd, odo = legs
+    n = GRID_S1_FRAMES
+    if phd["launches"] != {"beam_scan": n, "fused_stage": n} or any(odo["launches"].values()):
+        raise AssertionError(f"run_gpu_grid chap3-s1: launches {legs} (phd {n} of each, odometry none)")
+    row = stats["phd"]
+    if not (row["ate_loc_rmse"] < GRID_S1[0] and row["final_ospa"] < GRID_S1[1]):
+        raise AssertionError(f"run_gpu_grid chap3-s1 phd: {row}, limits {GRID_S1}")
+    total = {k: phd["launches"][k] for k in ("beam_scan", "fused_stage")}
+    say("grid-chap3-s1", particles=GRID_S1_PARTICLES, frames=n, phd=row, odometry=stats["odometry"],
+        ate_limit=GRID_S1[0], ospa_limit=GRID_S1[1], run_seconds=phd["seconds"],
+        ms_per_frame=phd["seconds"] * 1e3 / n, odometry_seconds=odo["seconds"], legs=legs,
+        experiment_wall_s=stats["_wall_s"], peak_device_memory_gb=peak / 2**30, device=stats["_device"])
+
+    reset_launches()
+    args = argparse.Namespace(experiment="throughput", outdir=str(out), seeds="0", variant="default")
+    with contextlib.redirect_stdout(io.StringIO()):
+        run_experiments.run_grid(args, {"throughput": lambda d: run_gpu_grid.throughput(d, GRID_THROUGHPUT)})
+    launches = read_launches()
+    rows = json.loads((out / "throughput.stats.json").read_text())
+    frames = sum(2 * rows[str(p)]["frames"] for p in GRID_THROUGHPUT)  # a warm-up and a timed run each
+    if launches != {"beam_scan": frames, "fused_stage": frames}:
+        raise AssertionError(f"throughput: launches {launches} over {frames} frames")
+    for p in GRID_THROUGHPUT:
+        r = rows[str(p)]
+        if not r["ate_rmse_loc"] < ATE_LIMIT:
+            raise AssertionError(f"throughput at {p} particles: {r}, ATE limit {ATE_LIMIT}")
+        say("grid-throughput", particles=p, **r, ate_limit=ATE_LIMIT)
+    for k, v in launches.items():
+        total[k] += v
+
+    reset_launches()
+    r = bench_scaling.run(SCALING_P, 50, dev)
+    launches = read_launches()
+    if launches != {"beam_scan": 2 * r["frames"], "fused_stage": 2 * r["frames"]}:
+        raise AssertionError(f"bench_scaling at {SCALING_P}: launches {launches} over 2 x {r['frames']} frames")
+    if not r["ate_rmse_loc"] < ATE_LIMIT:
+        raise AssertionError(f"bench_scaling at {SCALING_P}: {r}, ATE limit {ATE_LIMIT}")
+    say("grid-scaling", **r, launches=launches, ate_limit=ATE_LIMIT)
+    for k, v in launches.items():
+        total[k] += v
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        summarize.main(out)
+    text = (out / "SUMMARY.md").read_text()
+    want = (["| chap3-s1 | phd |", "| chap3-s1 | odometry |"]
+            + [f"| throughput | {p} |" for p in GRID_THROUGHPUT] + ["| out-h100 | chap3-s1 | phd |"])
+    missing = [w for w in want if w not in text]
+    held = next(line for line in text.splitlines() if line.startswith("| out-h100 | chap3-s1 | phd |"))
+    if missing or not held.endswith("| pass |"):
+        raise AssertionError(f"summarize: rows missing {missing}; chap3-s1 phd held: {held}")
+    seconds = time.perf_counter() - t_phase
+    say("grid-summary", rows=len([ln for ln in text.splitlines() if ln.startswith("| ")]), held=held,
+        phase_seconds=seconds, budget_s=GRID_BUDGET_S, within_budget=seconds <= GRID_BUDGET_S)
+    for k in kernels:
+        k["launches"] = k.get("launches", 0) + total[k["name"]]
+        k.setdefault("launches_by_path", {})["grid"] = total[k["name"]]
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=pathlib.Path, default=None,
                     help="another checkout whose kernels are timed on the same inputs")
-    ap.add_argument("--phases", default="kernels,bench,sync,cli,graph,loopy,kinect",
-                    help="comma-separated subset of kernels,bench,sync,cli,graph,loopy,kinect (default: all)")
+    ap.add_argument("--phases", default="kernels,bench,sync,cli,graph,loopy,kinect,grid",
+                    help="comma-separated subset of kernels,bench,sync,cli,graph,loopy,kinect,grid "
+                         "(default: all)")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -1154,6 +1327,8 @@ def main():
     kernels = [beam_phase(dev, parent), fused_phase(dev, parent)] if "kernels" in phases else []
     if "loopy" in phases:  # the smoother's kernel shapes, beside the others
         loopy_kernels(dev, kernels)
+    if "grid" in phases:  # the grid's shapes
+        grid_kernels(dev, kernels)
     if "bench" in phases:
         bench_phase(dev, kernels)
     if "sync" in phases:
@@ -1172,6 +1347,8 @@ def main():
             loopy_phase(dev, kernels, tmp)
         if "kinect" in phases:
             kinect_phase(dev, kernels, tmp)
+        if "grid" in phases:
+            grid_phase(dev, kernels, tmp)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,8 @@ the command-line path.
 
     python -m monorfs_tpu_torch.profile_step [--frames 50] [--trace PATH]
     python -m monorfs_tpu_torch.profile_step --sync-check [--frames 10]
-    python -m monorfs_tpu_torch.profile_step --cli 3d|2d|2dloop|1d [--frames 50]
+    python -m monorfs_tpu_torch.profile_step --cli 3d|2d|2dloop|1d [--frames 50] [--particles 200]
+        [--config experiments/configs/chap3-default.cfg]
     python -m monorfs_tpu_torch.profile_step --graph nav|scan|scan-da [--frames 20]
     python -m monorfs_tpu_torch.profile_step --loopy 2d|3d [--frames 40] [--sweeps 1]
     python -m monorfs_tpu_torch.profile_step --kinect [--frames 10]
@@ -18,9 +19,11 @@ most time, and device events per frame. --trace also writes a Chrome
 trace.
 
 --cli profiles the Simulation the command line builds for that asset world
-(200 particles, float32, the default PHDConfig: K=600, beam 200 x 8) twice,
-with and without the per-frame history (`_record`, which reads the best map
-and every pose to the host), and prints both objects.
+(200 particles or --particles, float32, the default PHDConfig: K=600, beam
+200 x 8, or the capacity of a --config cfg file) twice, with and without the
+per-frame history (`_record`, which reads the best map and every pose to the
+host), and prints both objects, each with the peak device memory of its
+frames.
 
 --graph profiles the graph backend on the 3D asset world: `nav` the
 host-interactive navigator through Simulation -a isam2 (float64), frames
@@ -186,16 +189,20 @@ def summarise(prof, wall, n):
     }
 
 
-def profile_cli(which, n, collect_history, device="cuda"):
+def profile_cli(which, n, collect_history, device="cuda", particles=200, config=None):
     """Profile n frames of the command line's Simulation on an asset world
-    after CHUNK warm-up frames."""
+    after CHUNK warm-up frames (`config`: a cfg file, as -g gives it)."""
     world_file, command_file = CLI_WORLDS[which]
     world = World.from_file(ROOT / "assets" / world_file)
     commands = parse_commands((ROOT / "assets" / command_file).read_text())
     commands = (commands * (1 + (CHUNK + n) // len(commands)))[: CHUNK + n]
-    cfg = Config()
-    cfg.set_model_defaults({1: "Linear1D", 2: "Linear2D", 7: "PRM3D"}[len(world.pose)])
-    sim = Simulation(cfg, world, commands, particles=200, dtype=np.float32,
+    if config:
+        cfg = Config.from_file(config)
+    else:
+        cfg = Config()
+        cfg.set_model_defaults({1: "Linear1D", 2: "Linear2D", 7: "PRM3D"}[len(world.pose)])
+    torch.cuda.reset_peak_memory_stats()
+    sim = Simulation(cfg, world, commands, particles=particles, dtype=np.float32,
                      collect_history=collect_history, device=device)
     for cmd in commands[:CHUNK]:
         sim.step(cmd)
@@ -207,8 +214,9 @@ def profile_cli(which, n, collect_history, device="cuda"):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     out = summarise(prof, wall, n)
-    out.update(path="cli", world=world_file, collect_history=collect_history,
-               shape=dict(P=200, K0=sim.phd_cfg.max_components, M=sim.max_meas,
+    out.update(path="cli", world=world_file, collect_history=collect_history, config=config and str(config),
+               peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               shape=dict(P=particles, K0=sim.phd_cfg.max_components, M=sim.max_meas,
                           B=sim.phd_cfg.beam_width, C=sim.phd_cfg.beam_candidates))
     return out
 
@@ -345,6 +353,8 @@ def main(argv=None):
     ap.add_argument("--loopy", choices=["2d", "3d"], default=None)
     ap.add_argument("--sweeps", type=int, default=1, help="--loopy: smoother sweeps")
     ap.add_argument("--kinect", action="store_true")
+    ap.add_argument("--particles", type=int, default=200, help="--cli: particles")
+    ap.add_argument("--config", default=None, help="--cli: a cfg file, as -g gives it")
     args = ap.parse_args(argv)
     n = args.frames or 50
 
@@ -362,7 +372,8 @@ def main(argv=None):
 
     if args.cli:
         for collect_history in (True, False):
-            print(json.dumps(profile_cli(args.cli, n, collect_history)), flush=True)
+            print(json.dumps(profile_cli(args.cli, n, collect_history, particles=args.particles,
+                                         config=args.config)), flush=True)
         return
 
     if args.sync_check:

@@ -373,11 +373,12 @@ def resample(state: PHDState, u):
     )
 
 
-def _normalise_resample(params, state, corrected, scores, rest, resample_u):
-    """Weight update, NaN-guarded normalisation and the ESS test with
-    systematic resampling; both ESS branches are computed and selected with
-    torch.where, so no value goes to the host."""
-    logweight = state.logweight + (association.logsumexp_scores(scores) + rest)
+def _normalise_resample(params, state, corrected, increment, resample_u):
+    """Weight update by the per-particle log-likelihood `increment` [P],
+    NaN-guarded normalisation and the ESS test with systematic resampling;
+    both ESS branches are computed and selected with torch.where, so no
+    value goes to the host."""
+    logweight = state.logweight + increment
     norm = torch.logsumexp(logweight, dim=0)
     logweight = torch.where(torch.isfinite(norm), logweight - norm, state.logweight)
     p = logweight.shape[0]
@@ -399,7 +400,7 @@ def _normalise_resample(params, state, corrected, scores, rest, resample_u):
     )
 
 
-def make_slam_step(model, cfg: PHDConfig, slam: bool = True, kernels=None):
+def make_slam_step(model, cfg: PHDConfig, slam: bool = True, kernels=None, stages=None):
     """The step: (params, state, odometry [T], z [M, D], z_mask [M],
     motion_normals [P, T], resample_u [], true_pose [S] = None) -> state.
 
@@ -422,7 +423,15 @@ def make_slam_step(model, cfg: PHDConfig, slam: bool = True, kernels=None):
       False  the XLA-semantics functions and the plain beam for any dtype
              and model (the tests' oracle);
       True   both kernels; a float64 state or a model the fused stage does
-             not support raises."""
+             not support raises.
+
+    stages replaces a stage with another function, as tools/ablate.py takes
+    stages out (the JAX tool patches the module instead):
+      "correct"  (pose, maps, z, z_mask) -> (predicted, corrected), in place
+                 of births + correct + prune;
+      "weight"   (pose, predicted, corrected, z, z_mask) -> the log-weight
+                 increment [P], in place of the weight inputs and the beam."""
+    stages = stages or {}
     n_words = (cfg.estimate_cap + 31) // 32
     packed = [None, None]  # the params seen last and their fused-kernel vector
 
@@ -444,7 +453,9 @@ def make_slam_step(model, cfg: PHDConfig, slam: bool = True, kernels=None):
                 order = live_first(z_mask, cfg.meas_compact)
                 z, z_mask = z[order], z_mask[order]
         with record_function("phd.fused_stage"):
-            if use_fused:
+            if "correct" in stages:
+                predicted, corrected = stages["correct"](state.pose, state.maps, z, z_mask)
+            elif use_fused:
                 # kept while every field but the depth map is the same
                 # tensor: the vector holds no depth, and a params re-bound
                 # with a new depth map only is not packed again
@@ -466,15 +477,19 @@ def make_slam_step(model, cfg: PHDConfig, slam: bool = True, kernels=None):
                 torch.zeros((), dtype=torch.int64, device=state.pose.device),
                 torch.arange(p, device=state.pose.device),
             )
-        with record_function("phd.weight_inputs"):
-            rest, base, od, wk, bk = weight_inputs(
-                model, cfg, params, state.pose, predicted, corrected, z, z_mask
-            )
-        with record_function("phd.beam_scan"):
-            beam = beam_kernel.beam_scan_batch if use_beam else association.beam_scan
-            scores = beam(base, od, wk, bk, cfg.beam_width, n_words)
+        if "weight" in stages:
+            increment = stages["weight"](state.pose, predicted, corrected, z, z_mask)
+        else:
+            with record_function("phd.weight_inputs"):
+                rest, base, od, wk, bk = weight_inputs(
+                    model, cfg, params, state.pose, predicted, corrected, z, z_mask
+                )
+            with record_function("phd.beam_scan"):
+                beam = beam_kernel.beam_scan_batch if use_beam else association.beam_scan
+                scores = beam(base, od, wk, bk, cfg.beam_width, n_words)
+            increment = association.logsumexp_scores(scores) + rest
         with record_function("phd.normalise_resample"):
-            return _normalise_resample(params, state, corrected, scores, rest, resample_u)
+            return _normalise_resample(params, state, corrected, increment, resample_u)
 
     return step
 
