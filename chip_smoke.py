@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Smoke run of the PyTorch/CUDA port (monorfs_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--parent DIR] [--phases kernels,bench,sync,cli,graph,loopy,kinect,grid]
+    python3 chip_smoke.py [--parent DIR] [--phases kernels,bench,sync,cli,graph,loopy,kinect,grid,parallel]
 
 Phases, one line each; any failure exits non-zero:
   1. device, `nvidia-smi` name and power limit, kernel build (nvcc, sm_90a);
@@ -88,6 +88,21 @@ Phases, one line each; any failure exits non-zero:
      peak memory, ATE under the bench limit), and summarize over the
      phase's outdir (the rows there, chap3-s1 phd held against the JAX
      package's row).
+ 11. `parallel`: the multi-device paths (monorfs_tpu_torch/parallel) over
+     NCCL with a world of one (NCCL takes no two ranks on one card; N > 1
+     runs are the CPU tests' gloo ranks). The particle-sharded step against
+     the single-card step over the bench path's PARALLEL_FRAMES frames with
+     the same vehicle frames and draws (poses atol 1e-5, log-weights atol
+     2e-3, best and ancestors equal), each kernel launched once a frame on
+     the sharded run; one block-sharded smoother sweep against the
+     sequential sweep (then relinearize) over PARALLEL_NODES nodes of the 2D
+     chap5 odometry run at full width in float32 (fused mean / cov and map
+     messages atol 1e-5), the fused kernel launched by its cavity passes;
+     the landmark-sharded Schur BA against graph.gauss_newton in float64
+     on a random 3D graph (atol 1e-8); then bench_flagship at its defaults
+     (100,000 particles, 10,240 landmarks x 128 poses): seconds a step,
+     particle updates a second, seconds a Gauss-Newton iteration, peak
+     memory. The phase's seconds are printed beside PARALLEL_BUDGET_S.
 Cuts for the time limit: phase 7 repeats the 3D `-a isam2` command over its
 first REPEAT_FRAMES of 300 frames; phase 8 runs the port's own s2 recording once
 (the repeat runs on the JAX recording) and its 3D run to LOOPY_BUDGET_S.
@@ -122,11 +137,13 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from monorfs_tpu_torch import _build, bench_isam2, bench_scaling, cli, experiments_kinect, native, postanalysis
+from monorfs_tpu_torch import (_build, bench_core, bench_flagship, bench_isam2, bench_scaling, cli,
+                               experiments_kinect, native, postanalysis)
 from monorfs_tpu_torch.bench import BENCH_CONFIG, run as run_bench
 from monorfs_tpu_torch.config import Config
 from monorfs_tpu_torch.experiments import run_experiments, run_gpu_grid, summarize
 from monorfs_tpu_torch.frontend.dataset import RGBDDataset, convert_tum
+from monorfs_tpu_torch.geometry import pose3d
 from monorfs_tpu_torch.gm.mixture import DEAD, SGM
 from monorfs_tpu_torch.io import Recording, World, parse_commands
 from monorfs_tpu_torch.io.avi import jpeg_size, read_mjpeg
@@ -136,8 +153,10 @@ from monorfs_tpu_torch.models import PRM3D
 from monorfs_tpu_torch.models import get as get_model
 from monorfs_tpu_torch.profile_step import (count_syncs, host_syncs, in_package, loopy_navigator,
                                             profile_kinect)
+from monorfs_tpu_torch.parallel import chain, dist_ba, make_mesh, make_sharded_step, multihost, shard_state
+from monorfs_tpu_torch.sim import vehicle as vehicle_mod
 from monorfs_tpu_torch.sim.simulation import Simulation
-from monorfs_tpu_torch.slam import association, beam_kernel, fused_kernel, graph
+from monorfs_tpu_torch.slam import association, beam_kernel, fused_kernel, graph, loopy
 from monorfs_tpu_torch.slam.isam2_scan import build_isam2_scan_runner, scan_draws
 from monorfs_tpu_torch.slam.isam2_scan_da import build_mahalanobis_scan
 from monorfs_tpu_torch.slam.phd import PHDConfig
@@ -1292,13 +1311,206 @@ def grid_phase(dev, kernels, tmp):
         k.setdefault("launches_by_path", {})["grid"] = total[k["name"]]
 
 
+# ---- phase 11: the multi-device paths --------------------------------------------
+
+PARALLEL_FRAMES = 300  # the bench path's frames
+PARALLEL_NODES = 64  # smoother nodes of the chain sweep
+PARALLEL_BUDGET_S = 90.0  # the phase's share of the script's time, printed beside its seconds
+
+
+def parallel_step(dev, mesh):
+    """The sharded step against the single-card step over the bench path's
+    frames: the vehicle frames and every draw made once, the single-card run
+    first (its launches not counted), then the sharded run with the counts
+    set to 0. Returns the sharded run's launches."""
+    assets = pathlib.Path(__file__).resolve().parent / "assets"
+    runner, carry, cmds = bench_core.setup(assets / "sim3d.world", assets / "mov3d.in", frames=PARALLEL_FRAMES,
+                                           phd_cfg=BENCH_CONFIG, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n_lm = carry.vstate.landmarks.shape[0]
+    frames, vstate = [], carry.vstate
+    for i in range(0, PARALLEL_FRAMES, bench_core.CHUNK):
+        draws = bench_core.draw_chunk(runner, gen, bench_core.CHUNK, n_lm, torch.float32)
+        for f in range(bench_core.CHUNK):
+            vstate, noisy = vehicle_mod.update(runner.model, runner.vparams, vstate, cmds[i + f],
+                                               draws["odo_normals"][f])
+            z, mask, _, _, _ = vehicle_mod.measure(
+                runner.model, runner.vparams, vstate, draws["detect_u"][f], draws["meas_normals"][f],
+                draws["clutter_draw"][f], draws["clutter_u"][f], runner.max_clutter)
+            frames.append((noisy, z, mask, draws["motion_normals"][f], draws["resample_u"][f]))
+
+    def run(step, state):
+        out = []
+        for noisy, z, mask, normals, u in frames:
+            state = step(runner.nparams, state, noisy, z, mask, normals, u)
+            out.append((state.pose, state.logweight, state.best, state.ancestor))  # a world of one
+        torch.cuda.synchronize()
+        return [torch.stack(x) for x in zip(*out)]
+
+    t0 = time.perf_counter()
+    want = run(runner.step, carry.nstate)
+    single_s = time.perf_counter() - t0
+    sharded = make_sharded_step(runner.model, runner.cfg, mesh)
+    mesh.comm.clear()
+    reset_launches()
+    t0 = time.perf_counter()
+    got = run(sharded, shard_state(carry.nstate, mesh))
+    sharded_s = time.perf_counter() - t0
+    launches = read_launches()
+    pose_err = (got[0] - want[0]).abs().max().item()
+    lw_err = (got[1] - want[1]).abs().max().item()
+    same_best = bool(torch.equal(got[2], want[2]))
+    same_anc = bool(torch.equal(got[3], want[3]))
+    resampled = int((want[3] != torch.arange(BENCH_CONFIG.num_particles, device=dev)).any(dim=1).sum())
+    say("parallel-step", frames=PARALLEL_FRAMES, particles=BENCH_CONFIG.num_particles, world=mesh.size,
+        backend=torch.distributed.get_backend(), pose_max_abs_err=pose_err, logweight_max_abs_err=lw_err, best_equal=same_best,
+        ancestors_equal=same_anc, frames_resampled=resampled, single_card_s=single_s,
+        sharded_s=sharded_s, launches=launches, comm={k: list(v) for k, v in mesh.comm.items()})
+    if not (pose_err <= 1e-5 and lw_err <= 2e-3 and same_best and same_anc):
+        raise AssertionError("the sharded step parts from the single-card step")
+    if launches != {"beam_scan": PARALLEL_FRAMES, "fused_stage": PARALLEL_FRAMES}:
+        raise AssertionError(f"sharded step: launches {launches} over {PARALLEL_FRAMES} frames")
+    return launches
+
+
+def parallel_chain(dev, mesh):
+    """One block-sharded sweep against the sequential sweep (then
+    relinearize) on the same state; returns the sharded sweep's launches."""
+    nav = loopy_navigator("2d", PARALLEL_NODES, dev)
+    cfg, model = nav.lcfg, nav.model
+    temperature = torch.tensor(1.0, device=dev)
+    args = (nav.odometry, nav.z, nav.z_mask)
+    t0 = time.perf_counter()
+    want = loopy.make_sweep(model, cfg)(nav.params, nav.state, *args, temperature, nav.grad_clip,
+                                        nav.grad_rate, nav.motion_cov)
+    if cfg.relinearize:
+        want = loopy.relinearize(model, want)
+    torch.cuda.synchronize()
+    sequential_s = time.perf_counter() - t0
+    state, odo, z, zm = chain.shard_loopy_inputs(mesh, nav.state, *args)
+    sweep = chain.make_sharded_sweep(model, cfg, mesh)
+    mesh.comm.clear()
+    reset_launches()
+    t0 = time.perf_counter()
+    got = sweep(nav.params, state, odo, z, zm, temperature, nav.grad_clip, nav.grad_rate, nav.motion_cov)
+    torch.cuda.synchronize()
+    sharded_s = time.perf_counter() - t0
+    launches = read_launches()
+    errs = {f: (getattr(got, f) - getattr(want, f)).abs().max().item()
+            for f in ("fused_mean", "fused_cov", "map_mean", "map_logw", "lp")}
+    say("parallel-chain", nodes=PARALLEL_NODES, blocks=cfg.blocks, world=mesh.size, max_abs_err=errs,
+        sequential_s=sequential_s, sharded_s=sharded_s, launches=launches,
+        comm={k: list(v) for k, v in mesh.comm.items()})
+    if not all(e <= 1e-5 for e in errs.values()):
+        raise AssertionError(f"the sharded sweep parts from the sequential sweep: {errs}")
+    if launches["fused_stage"] < PARALLEL_NODES:
+        raise AssertionError(f"sharded sweep: {launches}, the cavity passes launch the fused kernel a frame")
+    return launches
+
+
+def ba_problem(dev, n_poses=16, n_lms=256, seed=3):
+    """A random 3D pixel-range graph in float64 (tests/test_dist_ba.py's
+    construction at a larger size): chained poses, landmarks in front of the
+    camera seen with probability 0.6, exact measurements, a noisy start."""
+    rng = np.random.default_rng(seed)
+    f64 = dict(dtype=torch.float64, device=dev)
+    gcfg = graph.GraphConfig(max_poses=n_poses, max_landmarks=n_lms, max_factors=n_poses * n_lms,
+                             gn_iters=6)
+    deltas = np.concatenate([rng.normal(size=(n_poses, 3)) * 0.03, rng.normal(size=(n_poses, 3)) * 0.01], 1)
+    deltas[0] = 0.0
+    true = [torch.tensor([0, 0, 0, 1, 0, 0, 0.0], **f64)]
+    for t in range(1, n_poses):
+        true.append(pose3d.add_odometry(true[-1], torch.tensor(deltas[t], **f64)))
+    true = torch.stack(true)
+    lms = torch.tensor(np.column_stack([rng.uniform(-0.3, 0.3, n_lms), rng.uniform(-0.3, 0.3, n_lms),
+                                        rng.uniform(0.8, 1.5, n_lms)]), **f64)
+    seen = rng.uniform(size=(n_poses, n_lms)) < 0.6
+    f_pose, f_lm = (torch.tensor(x, device=dev) for x in np.nonzero(seen))
+    st = graph.empty_state(PRM3D, gcfg, true[0].cpu().numpy(), torch.float64, dev)
+    nf = f_pose.shape[0]
+    st = st._replace(
+        poses=torch.cat([true[:1], pose3d.add(true[1:], torch.tensor(rng.normal(size=(n_poses - 1, 6)) * 0.01,
+                                                                     **f64))]),
+        n_poses=n_poses, landmarks=lms + torch.tensor(rng.normal(size=(n_lms, 3)) * 0.02, **f64),
+        lm_mask=torch.ones(n_lms, dtype=torch.bool, device=dev),
+        between=torch.tensor(deltas, **f64), between_mask=torch.arange(n_poses, device=dev) > 0,
+        f_pose=torch.cat([f_pose, f_pose.new_zeros(gcfg.max_factors - nf)]),
+        f_lm=torch.cat([f_lm, f_lm.new_zeros(gcfg.max_factors - nf)]),
+        f_z=torch.cat([PRM3D.measure(PRM3D.params, true[f_pose], lms[f_lm]),
+                       torch.zeros((gcfg.max_factors - nf, 3), **f64)]),
+        f_mask=torch.arange(gcfg.max_factors, device=dev) < nf,
+    )
+    minfo = torch.tensor(np.diag(1.0 / np.array([5e-3] * 3 + [2e-4] * 3)), **f64)
+    sinfo = torch.tensor(np.diag(1.0 / np.array([2.0, 2.0, 1e-3])), **f64)
+    return gcfg, st, minfo, sinfo
+
+
+def parallel_ba(dev):
+    """The landmark-sharded Schur BA against graph.gauss_newton, float64."""
+    gcfg, st, minfo, sinfo = ba_problem(dev)
+    t0 = time.perf_counter()
+    want = graph.gauss_newton(PRM3D, gcfg, st, minfo, sinfo)
+    torch.cuda.synchronize()
+    dense_s = time.perf_counter() - t0
+    mesh = dist_ba.make_landmark_mesh(device=dev)
+    dcfg = dist_ba.DistBAConfig(max_poses=gcfg.max_poses, max_landmarks=gcfg.max_landmarks,
+                                max_factors=gcfg.max_factors, gn_iters=gcfg.gn_iters, damping=gcfg.damping)
+    host = lambda x: x.cpu().numpy()
+    parts = dist_ba.partition_factors(dcfg, mesh.size, host(st.f_pose), host(st.f_lm), host(st.f_z),
+                                      host(st.f_mask))
+    lms, lmask, fp, fl, fz, fm = dist_ba.shard_ba_inputs(mesh, host(st.landmarks), host(st.lm_mask), *parts)
+    t0 = time.perf_counter()
+    poses, lms = dist_ba.make_dist_gauss_newton(PRM3D, dcfg, mesh)(
+        st.poses, st.n_poses, st.pose_fixed, st.between, st.between_mask, lms, lmask, fp, fl, fz, fm,
+        minfo, sinfo)
+    torch.cuda.synchronize()
+    dist_s = time.perf_counter() - t0
+    errs = dict(poses=(poses - want.poses).abs().max().item(), landmarks=(lms - want.landmarks).abs().max().item())
+    moved = (want.landmarks - st.landmarks).abs().max().item()
+    say("parallel-ba", poses=gcfg.max_poses, landmarks=gcfg.max_landmarks, factors=int(st.f_mask.sum()),
+        gn_iters=gcfg.gn_iters, world=mesh.size, max_abs_err=errs, landmarks_moved=moved,
+        dense_s=dense_s, distributed_s=dist_s, comm={k: list(v) for k, v in mesh.comm.items()})
+    if not (max(errs.values()) <= 1e-8 and moved > 1e-3):
+        raise AssertionError(f"the distributed BA parts from graph.gauss_newton: {errs}")
+
+
+def parallel_phase(dev, kernels):
+    """Phase 11: the multi-device paths over NCCL with a world of one."""
+    graph.assert_full_precision()
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks: the flagship needs ~30 GB
+    t_phase = time.perf_counter()
+    multihost.initialize(f"tcp://localhost:{multihost.free_port()}", 1, 0, device=str(dev))
+    try:
+        mesh = make_mesh(device=dev)
+        assert mesh.size == 1, "one card: a world of one"
+        total = parallel_step(dev, mesh)
+        for k, v in parallel_chain(dev, mesh).items():
+            total[k] += v
+        parallel_ba(dev)
+        t0 = time.perf_counter()
+        particles, landmarks = bench_flagship.PARTICLES, bench_flagship.LANDMARKS
+        t_phd, mem_phd = bench_flagship.bench_phd(particles, mesh)
+        t_ba, mem_ba = bench_flagship.bench_ba(landmarks, dist_ba.make_landmark_mesh(device=dev))
+        say("parallel-flagship", particles=particles, step_s=t_phd, particle_updates_per_s=particles / t_phd,
+            peak_memory_bytes=mem_phd, landmarks=landmarks, poses=128, gn_iter_s=t_ba,
+            ba_peak_memory_bytes=mem_ba, world=mesh.size, seconds=time.perf_counter() - t0)
+    finally:
+        multihost.shutdown()
+    seconds = time.perf_counter() - t_phase
+    say("parallel-summary", phase_seconds=seconds, budget_s=PARALLEL_BUDGET_S,
+        within_budget=seconds <= PARALLEL_BUDGET_S, launches=total)
+    for k in kernels:
+        k["launches"] = k.get("launches", 0) + total[k["name"]]
+        k.setdefault("launches_by_path", {})["parallel"] = total[k["name"]]
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=pathlib.Path, default=None,
                     help="another checkout whose kernels are timed on the same inputs")
-    ap.add_argument("--phases", default="kernels,bench,sync,cli,graph,loopy,kinect,grid",
-                    help="comma-separated subset of kernels,bench,sync,cli,graph,loopy,kinect,grid "
-                         "(default: all)")
+    ap.add_argument("--phases", default="kernels,bench,sync,cli,graph,loopy,kinect,grid,parallel",
+                    help="comma-separated subset of kernels,bench,sync,cli,graph,loopy,kinect,grid,"
+                         "parallel (default: all)")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -1349,6 +1561,8 @@ def main():
             kinect_phase(dev, kernels, tmp)
         if "grid" in phases:
             grid_phase(dev, kernels, tmp)
+    if "parallel" in phases:
+        parallel_phase(dev, kernels)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -119,12 +119,16 @@ def empty_state(model, cfg: GraphConfig, init_pose, dtype=torch.float32, device=
 
 def _linearize_between(model, state: GraphState):
     """Residuals + Jacobians of the odometry chain wrt the `add` tangent of
-    both endpoint poses. [T] factors: factor t links t-1 -> t. The Jacobians
-    are forward-mode derivatives of the residual at a zero tangent, as the
-    JAX package takes them."""
-    prev = torch.roll(state.poses, 1, dims=0)
-    cur = state.poses
-    delta = state.between
+    both endpoint poses. [T] factors: factor t links t-1 -> t."""
+    return _linearize_chain(model, state.poses, state.between)
+
+
+def _linearize_chain(model, poses, delta):
+    """_linearize_between on the poses [T, S] and the deltas [T, O]. The
+    Jacobians are forward-mode derivatives of the residual at a zero
+    tangent, as the JAX package takes them."""
+    prev = torch.roll(poses, 1, dims=0)
+    cur = poses
 
     o = model.pose.odo_dim
 
@@ -202,22 +206,8 @@ def build_normal_equations(model, cfg, state: GraphState, motion_info, meas_info
     if layout is None:
         layout = factor_layout(cfg, state)
 
-    # odometry chain: factor i touches blocks i-1 and i (factor 0 links
-    # pose 0 to itself and is normally masked out)
-    r, jprev, jcur = _linearize_between(model, state)
-    w = state.between_mask.to(dtype)
-    jprev_w = torch.einsum("de,teb->tdb", motion_info, jprev) * w[:, None, None]
-    jcur_w = torch.einsum("de,teb->tdb", motion_info, jcur) * w[:, None, None]
-    pp = torch.einsum("tba,tbc->tac", jprev, jprev_w)
-    pc = torch.einsum("tba,tbc->tac", jprev, jcur_w)
-    cp = torch.einsum("tba,tbc->tac", jcur, jprev_w)
-    diag = torch.einsum("tba,tbc->tac", jcur, jcur_w)
-    diag[:-1] += pp[1:]
-    diag[0] += pp[0] + pc[0] + cp[0]
-    gprev = -torch.einsum("tba,tb->ta", jprev_w, r)
-    bp = -torch.einsum("tba,tb->ta", jcur_w, r)
-    bp[:-1] += gprev[1:]
-    bp[0] += gprev[0]
+    diag, upper, lower, bp = odometry_blocks(model, state.poses, state.between,
+                                             state.between_mask, motion_info)
 
     # measurement factors
     rm, jp, jl = _linearize_measurements(model, state, layout)
@@ -233,47 +223,104 @@ def build_normal_equations(model, cfg, state: GraphState, motion_info, meas_info
     hll = torch.einsum("trl,trac->lac", onehot, torch.einsum("trba,trbc->trac", jl, jl_w))
     bl = -torch.einsum("trl,tra->la", onehot, torch.einsum("trba,trb->tra", jl_w, rm))
 
-    hpp = torch.zeros((t * o, t * o), dtype=dtype, device=dev)
-    blocks = hpp.view(t, o, t, o).permute(1, 3, 0, 2)  # [o, o, T, T] view
+    return block_tridiagonal(diag, upper, lower), hpl, hll, bp.reshape(-1), bl
+
+
+def odometry_blocks(model, poses, between, between_mask, motion_info):
+    """The odometry chain's share of H dx = b, as blocks: (diagonal
+    [T, O, O], the blocks above it [T-1, O, O] and below it [T-1, O, O],
+    b [T, O]). Factor i touches blocks i-1 and i (factor 0 links pose 0 to
+    itself and is normally masked out)."""
+    r, jprev, jcur = _linearize_chain(model, poses, between)
+    w = between_mask.to(poses.dtype)
+    jprev_w = torch.einsum("de,teb->tdb", motion_info, jprev) * w[:, None, None]
+    jcur_w = torch.einsum("de,teb->tdb", motion_info, jcur) * w[:, None, None]
+    pp = torch.einsum("tba,tbc->tac", jprev, jprev_w)
+    pc = torch.einsum("tba,tbc->tac", jprev, jcur_w)
+    cp = torch.einsum("tba,tbc->tac", jcur, jprev_w)
+    diag = torch.einsum("tba,tbc->tac", jcur, jcur_w)
+    diag[:-1] += pp[1:]
+    diag[0] += pp[0] + pc[0] + cp[0]
+    gprev = -torch.einsum("tba,tb->ta", jprev_w, r)
+    bp = -torch.einsum("tba,tb->ta", jcur_w, r)
+    bp[:-1] += gprev[1:]
+    bp[0] += gprev[0]
+    return diag, pc[1:], cp[1:], bp
+
+
+def block_tridiagonal(diag, upper=None, lower=None):
+    """The dense [T O, T O] matrix of the diagonal blocks [T, O, O] and,
+    where given, the blocks above [T-1, O, O] and below [T-1, O, O] it."""
+    t, o = diag.shape[:2]
+    h = torch.zeros((t * o, t * o), dtype=diag.dtype, device=diag.device)
+    blocks = h.view(t, o, t, o).permute(1, 3, 0, 2)  # [o, o, T, T] view
     blocks.diagonal(dim1=2, dim2=3).copy_(diag.permute(1, 2, 0))
-    blocks.diagonal(offset=1, dim1=2, dim2=3).copy_(pc[1:].permute(1, 2, 0))
-    blocks.diagonal(offset=-1, dim1=2, dim2=3).copy_(cp[1:].permute(1, 2, 0))
-    return hpp, hpl, hll, bp.reshape(-1), bl
+    if upper is not None:
+        blocks.diagonal(offset=1, dim1=2, dim2=3).copy_(upper.permute(1, 2, 0))
+    if lower is not None:
+        blocks.diagonal(offset=-1, dim1=2, dim2=3).copy_(lower.permute(1, 2, 0))
+    return h
+
+
+def free_coordinates(n_slots, n_poses, pose_fixed, o):
+    """[T O]: the tangent coordinates of live pose slots that are not
+    pinned."""
+    active = (torch.arange(n_slots, device=pose_fixed.device) < n_poses) & ~pose_fixed
+    return torch.repeat_interleave(active, o)
+
+
+def pin(free, hpp, bp):
+    """The gauges on a pose system: identity diagonal, zero couplings and
+    rhs outside the free coordinates [T O]."""
+    zero = torch.zeros((), dtype=hpp.dtype, device=hpp.device)
+    hpp = torch.where(free[:, None] & free[None, :], hpp, zero)
+    hpp = hpp + torch.diag((~free).to(hpp.dtype))
+    return hpp, torch.where(free, bp, zero)
 
 
 def _apply_gauges(cfg, state, o, hpp, hpl, bp):
     """Pin fixed poses and deactivate unused pose slots: identity diagonal,
     zero couplings and rhs."""
-    t = cfg.max_poses
-    active = (torch.arange(t, device=hpp.device) < state.n_poses) & ~state.pose_fixed
-    free = torch.repeat_interleave(active, o)  # [T*O]
-    zero = torch.zeros((), dtype=hpp.dtype, device=hpp.device)
-    hpp = torch.where(free[:, None] & free[None, :], hpp, zero)
-    hpp = hpp + torch.diag((~free).to(hpp.dtype))
-    hpl = torch.where(free[:, None], hpl, zero)
-    bp = torch.where(free, bp, zero)
-    return hpp, hpl, bp
+    free = free_coordinates(cfg.max_poses, state.n_poses, state.pose_fixed, o)
+    hpp, bp = pin(free, hpp, bp)
+    return hpp, torch.where(free[:, None], hpl, torch.zeros_like(hpl)), bp
 
 
 def _schur_solve(cfg, state, o, hpp, hpl, hll, bp, bl, damping):
     """Schur-complement reduction on the landmark block + dense Cholesky."""
-    l = cfg.max_landmarks
-    dtype = hpp.dtype
-    eye3 = torch.eye(3, dtype=dtype, device=hpp.device)
-    hll_active = torch.where(state.lm_mask[:, None, None], hll + damping * eye3, eye3)
-    hll_inv = gaussian.inv(hll_active)
+    hred, bred, hll_inv, hpl_hllinv, hpl_b = schur_reduce(state.lm_mask, hpp, hpl, hll, bp, bl,
+                                                          damping)
+    dxp, solve = reduced_solve(hred, bred, damping)
+    dxl = back_substitute(state.lm_mask, hll_inv, hpl_b, bl, dxp)
+    return dxp, dxl, (solve, hll_inv, hpl_hllinv, hpl_b)
 
+
+def schur_reduce(lm_mask, hpp, hpl, hll, bp, bl, damping):
+    """The pose system with the landmarks [L] eliminated:
+      Hred = Hpp - Hpl Hll^-1 Hpl^T,  bred = bp - Hpl Hll^-1 bl
+    -> (Hred, bred, Hll^-1 [L, 3, 3], Hpl Hll^-1 [T O, L, 3], Hpl [T O, L, 3]).
+    Inactive landmarks take an identity block."""
+    l = hll.shape[0]
+    eye3 = torch.eye(3, dtype=hpp.dtype, device=hpp.device)
+    hll_active = torch.where(lm_mask[:, None, None], hll + damping * eye3, eye3)
+    hll_inv = gaussian.inv(hll_active)
     hpl_b = hpl.reshape(-1, l, 3)  # [TO, L, 3]
     hpl_hllinv = torch.einsum("nlb,lbc->nlc", hpl_b, hll_inv)
     hred = hpp - torch.einsum("nlc,mlc->nm", hpl_hllinv, hpl_b)
     bred = bp - torch.einsum("nlc,lc->n", hpl_hllinv, bl)
+    return hred, bred, hll_inv, hpl_hllinv, hpl_b
 
+
+def reduced_solve(hred, bred, damping):
+    """dxp = Hred^-1 bred by a damped, Jacobi-preconditioned Cholesky
+    -> (dxp, rhs -> Hred^-1 rhs)."""
+    dtype = hred.dtype
     # dtype-aware Levenberg damping: the Schur complement cancels exactly for
     # single-factor landmarks, so float32 roundoff can leave hred slightly
     # indefinite; damping relative to the diagonal scale absorbs it
     eps = torch.finfo(dtype).eps
     lam = damping + 100.0 * eps * torch.max(torch.diagonal(hred))
-    hred = hred + lam * torch.eye(hred.shape[0], dtype=dtype, device=hpp.device)
+    hred = hred + lam * torch.eye(hred.shape[0], dtype=dtype, device=hred.device)
     # Jacobi preconditioning keeps the reduced solve well-conditioned in
     # float32: Hs = D^-1/2 H D^-1/2
     dscale = torch.rsqrt(torch.clamp(torch.diagonal(hred), min=1e-12))
@@ -289,11 +336,14 @@ def _schur_solve(cfg, state, o, hpp, hpl, hll, bp, bl, damping):
             return dscale * torch.cholesky_solve((dscale * rhs)[:, None], chol)[:, 0]
         return torch.cholesky_solve(rhs * dscale[:, None], chol) * dscale[:, None]
 
-    dxp = solve(bred)
+    return solve(bred), solve
+
+
+def back_substitute(lm_mask, hll_inv, hpl_b, bl, dxp):
+    """The landmark step dxl = Hll^-1 (bl - Hpl^T dxp), 0 where inactive."""
     resid = bl - torch.einsum("nlb,n->lb", hpl_b, dxp)
     dxl = torch.einsum("lbc,lc->lb", hll_inv, resid)
-    dxl = torch.where(state.lm_mask[:, None], dxl, torch.zeros_like(dxl))
-    return dxp, dxl, (solve, hll_inv, hpl_hllinv, hpl_b)
+    return torch.where(lm_mask[:, None], dxl, torch.zeros_like(dxl))
 
 
 @record_function("graph.solve")

@@ -713,6 +713,18 @@ def map_sweep(model, cfg: LoopyConfig, params, state: LoopyState, z, z_mask, tem
     else:
         jmaps, jcovs, jvalids = cavity_maps(model, cfg, params, map_poses, z, z_mask, state.node_mask)
         block_ids = tidx % cfg.blocks
+    return fit_map_messages(model, cfg, params, state, pf_mean, pf_cov, (jmaps, jcovs, jvalids),
+                            block_ids, z, z_mask, temperature, grad_clip, grad_rate)
+
+
+def fit_map_messages(model, cfg: LoopyConfig, params, state: LoopyState, pf_mean, pf_cov, jmaps,
+                     block_ids, z, z_mask, temperature, grad_clip, grad_rate):
+    """Fit the map message of every node of `state` against the jmaps
+    (means, covs, valid) of its block, jmaps[i][block_ids[node]],
+    NODE_CHUNK nodes at a time, then re-fuse. A node without measurements
+    keeps only the trust-region anchor."""
+    jmaps, jcovs, jvalids = jmaps
+    t = state.lp.shape[0]
     parts = []
     for s in range(0, t, NODE_CHUNK):
         ids = block_ids[s : s + NODE_CHUNK]

@@ -28,7 +28,7 @@ the executable specification the SoA paths are tested against.
 """
 
 import dataclasses
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -39,6 +39,7 @@ from ..gm import gaussian, mixture, smallmat
 from ..gm.gaussian import sqrt_cov
 from ..gm.mixture import ALIVE_THRESHOLD, DEAD, GM, SGM
 from . import association, beam_kernel, fused_kernel
+from .assignment import first_argmax
 
 # log(1e-300): the reference's float64 density floor, pinned in log space so
 # float32 runs keep the float64 semantics (phd.py:52-56 of the JAX package).
@@ -352,51 +353,69 @@ def weight_inputs(model, cfg, params, pose, predicted: SGM, corrected: SGM, z, z
     return rest, base, od, wk, bk
 
 
-def resample(state: PHDState, u):
-    """Systematic (wheel) resampling (PHDNavigator.cs:724-760); u is one
-    uniform in [0, 1)."""
-    p = state.logweight.shape[0]
-    lw = state.logweight
-    w = torch.exp(lw - torch.logsumexp(lw, dim=0))
+def systematic_draws(logweight, u):
+    """The draws of systematic (wheel) resampling (PHDNavigator.cs:724-760)
+    from the log-weights [P] of all particles and one uniform u in [0, 1):
+    (source slot of every particle [P], BestParticle [])."""
+    p = logweight.shape[0]
+    w = torch.exp(logweight - torch.logsumexp(logweight, dim=0))
     cum = torch.cumsum(w, dim=0)
-    positions = u / p + torch.arange(p, dtype=lw.dtype, device=lw.device) / p
+    positions = u / p + torch.arange(p, dtype=logweight.dtype, device=logweight.device) / p
     src = torch.clamp(torch.searchsorted(cum, positions, side="left"), 0, p - 1)
     # BestParticle: the last drawn slot whose source holds the max weight
-    sel_w = w[src]
-    best = p - 1 - torch.argmax(torch.flip(sel_w, dims=(0,)))
-    return PHDState(
-        pose=state.pose[src],
-        logweight=torch.full_like(lw, -float(np.log(p))),
-        maps=mixture.map_soa(lambda a: a[src], state.maps),
-        best=best,
-        ancestor=src,
-    )
+    # (PHDNavigator.cs:745-748)
+    best = p - 1 - first_argmax(torch.flip(w[src], dims=(0,)), 0)[1]
+    return src, best
 
 
-def _normalise_resample(params, state, corrected, increment, resample_u):
-    """Weight update by the per-particle log-likelihood `increment` [P],
-    NaN-guarded normalisation and the ESS test with systematic resampling;
-    both ESS branches are computed and selected with torch.where, so no
-    value goes to the host."""
-    logweight = state.logweight + increment
-    norm = torch.logsumexp(logweight, dim=0)
-    logweight = torch.where(torch.isfinite(norm), logweight - norm, state.logweight)
-    p = logweight.shape[0]
-    state = PHDState(
-        state.pose, logweight, corrected, torch.argmax(logweight),
-        torch.arange(p, device=logweight.device),
-    )
+class Reductions(NamedTuple):
+    """The reductions over the particle axis that the weight update takes:
+    over the particles of the tensors it is given (LOCAL), or over every
+    rank's particles as collectives (parallel/mesh.py)."""
+
+    max: Callable  # a scalar of the particles held here -> over all particles
+    sum: Callable
+    gather: Callable  # [p, ...] held here -> [P, ...] of all particles
+    gather_maps: Callable  # SGM of the p particles held here -> of all P
+    offset: int = 0  # the global slot of the first particle held here
+
+
+def _held(x):
+    return x
+
+
+LOCAL = Reductions(_held, _held, _held, _held)
+
+
+def _normalise_resample(params, state, corrected, increment, resample_u, reduce=LOCAL):
+    """Weight update by the per-particle log-likelihood `increment` [p],
+    NaN-guarded normalisation and the ESS test with systematic resampling
+    (PHDNavigator.cs:724-760) over all P particles, the reductions taken by
+    `reduce`; both ESS branches are computed and selected with torch.where,
+    so no value goes to the host."""
+    lw = state.logweight + increment
+    rows = slice(reduce.offset, reduce.offset + lw.shape[0])
+    # log-sum-exp as torch.logsumexp takes it: an infinite max shifts by 0
+    top = reduce.max(lw.max())
+    top = torch.where(torch.isinf(top), torch.zeros_like(top), top)
+    norm = torch.log(reduce.sum(torch.sum(torch.exp(lw - top)))) + top
+    lw = torch.where(torch.isfinite(norm), lw - norm, state.logweight)
+    everyone = reduce.gather(lw)
+    p = everyone.shape[0]
     # ESS check (ParticleDepleted, :768-777)
-    w = torch.exp(logweight)
-    ess = 1.0 / torch.clamp(torch.sum(w * w), min=1e-30)
+    w = torch.exp(lw)
+    ess = 1.0 / torch.clamp(reduce.sum(torch.sum(w * w)), min=1e-30)
     depleted = ess < params.min_effective_particle * p
-    rs = resample(state, resample_u)
+    src, rs_best = systematic_draws(everyone, resample_u)
+    mine = src[rows]
+    maps = mixture.map_soa(lambda a: a[mine], reduce.gather_maps(corrected))
+    keep = lambda a, b: torch.where(depleted, a, b)
     return PHDState(
-        pose=torch.where(depleted, rs.pose, state.pose),
-        logweight=torch.where(depleted, rs.logweight, state.logweight),
-        maps=mixture.map_soa(lambda a, b: torch.where(depleted, a, b), rs.maps, state.maps),
-        best=torch.where(depleted, rs.best, state.best),
-        ancestor=torch.where(depleted, rs.ancestor, state.ancestor),
+        pose=keep(reduce.gather(state.pose)[mine], state.pose),
+        logweight=keep(torch.full_like(lw, -float(np.log(p))), lw),
+        maps=mixture.map_soa(keep, maps, corrected),
+        best=keep(rs_best, first_argmax(everyone, 0)[1]),
+        ancestor=keep(mine, torch.arange(rows.start, rows.stop, device=lw.device)),
     )
 
 
@@ -430,8 +449,13 @@ def make_slam_step(model, cfg: PHDConfig, slam: bool = True, kernels=None, stage
       "correct"  (pose, maps, z, z_mask) -> (predicted, corrected), in place
                  of births + correct + prune;
       "weight"   (pose, predicted, corrected, z, z_mask) -> the log-weight
-                 increment [P], in place of the weight inputs and the beam."""
+                 increment [P], in place of the weight inputs and the beam;
+      "normalise" (params, state, corrected, increment, resample_u) -> the
+                 next state, in place of _normalise_resample (the sharded
+                 step passes it its reductions over all ranks,
+                 parallel/mesh.py)."""
     stages = stages or {}
+    normalise = stages.get("normalise", _normalise_resample)
     n_words = (cfg.estimate_cap + 31) // 32
     packed = [None, None]  # the params seen last and their fused-kernel vector
 
@@ -489,7 +513,7 @@ def make_slam_step(model, cfg: PHDConfig, slam: bool = True, kernels=None, stage
                 scores = beam(base, od, wk, bk, cfg.beam_width, n_words)
             increment = association.logsumexp_scores(scores) + rest
         with record_function("phd.normalise_resample"):
-            return _normalise_resample(params, state, corrected, increment, resample_u)
+            return normalise(params, state, corrected, increment, resample_u)
 
     return step
 

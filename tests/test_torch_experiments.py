@@ -244,3 +244,23 @@ def test_chap4_s1_end_to_end(cpu_grid, tmp_path, capsys):
     assert stats["phd"]["final_ospa"] < 0.6 and stats["isam2"]["final_ospa"] < 0.6
     assert stats["odometry"]["final_ospa"] == 1.0
     assert (tmp_path / "chap4-default" / "isam2.zip.loc.data").is_file()
+
+
+def test_seed_spread_rule():
+    """seed_spread holds the port's 10 seeds of each row against the JAX
+    package's 10 (CPU seeds 0-2 and 3-9 from their two files) and closes a
+    row only when the Mann-Whitney p >= 0.05 and the port's median lies in
+    the JAX interquartile range; U counts the pairs the port's seed wins."""
+    from monorfs_tpu_torch.experiments import seed_spread as S
+
+    rows = [S.compare(*r) for r in S.ROWS]
+    for (exp, alg, metric, _), r in zip(S.ROWS, rows):
+        assert r["port_seeds"] == list(range(10)) and r["jax_seeds"] == list(range(10))
+        port = [s[alg][metric] for s in S.seeds(S.PORT / f"{exp}.seeds.json").values()]
+        jax = [s[alg][metric] for s in S.seeds(S.JAX_CPU / f"{exp}.seeds.json",
+                                               S.JAX_MORE / f"{exp}.seeds.json").values()]
+        assert r["u"] == sum((a > b) + 0.5 * (a == b) for a in port for b in jax)
+        assert r["port"]["median"] == pytest.approx(float(np.median(port)), abs=0)
+        within = r["jax"]["q1"] <= r["port"]["median"] <= r["jax"]["q3"]
+        assert r["closes"] == (r["p"] >= 0.05 and within)
+    assert [r["closes"] for r in rows] == [False, True, True, True, True, True]

@@ -28,12 +28,13 @@ from monorfs_tpu.slam import loopy as jloopy
 from monorfs_tpu.slam.loopynav import LoopyPHDNavigator as JNavigator
 
 from monorfs_tpu_torch import convert
+from monorfs_tpu_torch.gm import mixture as tmixture
 from monorfs_tpu_torch.models import get as tget
 from monorfs_tpu_torch.slam import loopy
 from monorfs_tpu_torch.slam.loopynav import LoopyPHDNavigator
 
-from torch_parity import (LoopyCase, loopy_close, loopy_configs, loopy_problem, maps_close,
-                          state_close)
+from torch_parity import (FollowJaxPrune, LoopyCase, loopy_close, loopy_configs, loopy_problem,
+                          maps_close, state_close)
 
 CASES = [("Linear2D", 12, "float64"), ("Linear2D", 12, "float32")]
 
@@ -68,9 +69,19 @@ def test_sequential_refit(case):
     assert np.abs(case.jtraj - np.asarray(case.jargs[1])).max() > 1e-3
 
 
-def test_reversed_refit(case):
+def test_reversed_refit(case, monkeypatch):
+    """The refit over the reversed trajectory, the inner filters' cut in
+    JAX's order (torch_parity.FollowJaxPrune)."""
+    follow = FollowJaxPrune(case.jcfg.inner.max_components, case.dtype)
+    with monkeypatch.context() as m:
+        m.setattr(jax.lax, "top_k", follow.jax_top_k)
+        want = case.jtraj_back()
+    jax.effects_barrier()
+    assert len(follow.frames) == case.frames
+    monkeypatch.setattr(tmixture, "topk_stable", follow.port_topk)
     traj = case.tnav._reversed_refit(*case.targs)
-    loopy_close(traj, case.jtraj_back, case.dtype)
+    assert not follow.frames
+    loopy_close(traj, want, case.dtype)
 
 
 def test_map_sweep_and_fit_map_message(case):

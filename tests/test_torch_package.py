@@ -70,13 +70,16 @@ ENTRY_POINTS = {
                   "from monorfs_tpu_torch.config import Config; from monorfs_tpu_torch.io import World; "
                   "Simulation(Config(), World.from_file('assets/sim3d.world'), [])",
     "postanalysis": "import sys; from monorfs_tpu_torch.postanalysis import main; main(['-f', sys.argv[1]])",
+    "bench_flagship": "from monorfs_tpu_torch.bench_flagship import main; main(['--particles', '8'])",
+    "comm_volume": "from monorfs_tpu_torch.tools.comm_volume import main; main(['--ranks', '1'])",
 }
 
 
 @pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
 def test_entry_points_raise_without_gpu(entry, tmp_path):
-    """cli.main, Simulation and postanalysis default to the card: with no GPU
-    visible and no device given they raise, and run nothing on the CPU."""
+    """cli.main, Simulation, postanalysis, bench_flagship and comm_volume
+    default to the card: with no GPU visible and no device given they raise,
+    and run nothing on the CPU."""
     record = tmp_path / "rec.zip"
     if entry == "postanalysis":
         from monorfs_tpu_torch.cli import main

@@ -15,8 +15,9 @@ Two modes:
           frame, so maps are held to their component count and expected
           size (rtol 1e-3).
 Both modes: poses atol 1e-5, particle log-weights atol 2e-3 (sums of set
-likelihoods of magnitude ~30 in float32), best particle and ancestry
-exact."""
+likelihoods of magnitude ~30 in float32), ancestry exact, the best particle
+exact after a resampling and else within the log-weights' tolerance of
+JAX's (_check_best)."""
 
 import functools
 
@@ -79,6 +80,21 @@ def _expected_size(maps):
     return np.where(lw > -0.25e30, np.exp(lw), 0.0).sum(-1)
 
 
+def _check_best(tstate, jstate):
+    """The best particle. After a resampling it is the last drawn slot whose
+    source held the largest weight, exact. Without one it is the argmax of
+    the log-weights, which float32 determines only to the 2e-3 the
+    log-weights are held to: the first frame's increments are ~-72, where
+    float32's spacing is 7.6e-6, and JAX's top two lie 1.5e-5 apart. The port's best is then its own
+    argmax and one of the particles within 2e-3 of JAX's maximum."""
+    jlw, tlw, best = np_(jstate.logweight), tstate.logweight.numpy(), int(tstate.best)
+    if not np.array_equal(np_(jstate.ancestor), np.arange(len(jlw))):
+        assert best == int(jstate.best)
+        return
+    assert tlw[best] == tlw.max()
+    assert jlw[best] >= jlw.max() - 2e-3, (best, int(jstate.best), jlw)
+
+
 # min_effective_particle 0.95 makes the ESS test resample
 @pytest.mark.parametrize("mode,min_eff", [("resync", 0.95), ("free", 0.1)])
 def test_step_matches_jax(mode, min_eff):
@@ -111,7 +127,7 @@ def test_step_matches_jax(mode, min_eff):
         np.testing.assert_allclose(tstate.pose.numpy(), np_(jstate.pose), rtol=0, atol=1e-5)
         np.testing.assert_allclose(tstate.logweight.numpy(), np_(jstate.logweight), rtol=0, atol=2e-3)
         np.testing.assert_array_equal(tstate.ancestor.numpy(), np_(jstate.ancestor))
-        assert int(tstate.best) == int(jstate.best)
+        _check_best(tstate, jstate)
         if mode == "resync":
             assert_sets_close(jstate.maps, tstate.maps, CFG["num_particles"])
         else:

@@ -17,6 +17,7 @@ from monorfs_tpu.slam import loopy as jloopy
 from monorfs_tpu.slam.loopynav import LoopyPHDNavigator as JNavigator
 
 from monorfs_tpu_torch import convert
+from monorfs_tpu_torch.gm import mixture as tmixture
 from monorfs_tpu_torch.gm.mixture import SGM
 from monorfs_tpu_torch.models import get as tget
 from monorfs_tpu_torch.slam.loopynav import LoopyPHDNavigator
@@ -322,11 +323,14 @@ class LoopyCase:
     def jtraj(self):
         return np.asarray(self._jrefit(*self.jargs))
 
-    @functools.cached_property
     def jtraj_back(self):
+        """The JAX refit over the reversed inputs, flipped back; jitted anew
+        on every call, so that a patched jax.lax.top_k (FollowJaxPrune) is
+        traced into it."""
         params, lp, node_mask, odometry, z, z_mask, *rest = self.jargs
         lp_r, odo_r, z_r, zm_r = jloopy.reverse_refit_inputs(lp, odometry, z, z_mask)
-        return np.flip(np.asarray(self._jrefit(params, lp_r, node_mask, odo_r, z_r, zm_r, *rest)), 0)
+        refit = jax.jit(jloopy.make_sequential_refit(self.jm, self.jcfg))
+        return np.flip(np.asarray(refit(params, lp_r, node_mask, odo_r, z_r, zm_r, *rest)), 0)
 
     @functools.cached_property
     def jstate(self):
@@ -361,6 +365,53 @@ class LoopyCase:
     def port_state(self, jstate):
         """The JAX LoopyState as the port's (convert.loopy_state)."""
         return convert.loopy_state(fields(jstate), dtype=getattr(torch, self.dtype), device="cpu")
+
+
+class FollowJaxPrune:
+    """Runs the port's inner mapping filter on the JAX filter's order of its
+    weight-sorted cut (the top-k of every frame's candidate log-weights,
+    phd._correct_prune_soa in both packages): install jax_top_k as
+    jax.lax.top_k while the JAX function is traced, and port_topk as the
+    port's mixture.topk_stable while the port's runs.
+
+    Candidates whose log-weights differ by less than float32 resolves come
+    out of the cut in an order rounding decides: on the Linear2D reversed
+    refit, three candidates with float64 log-weights -4.5718e-07,
+    -4.3982e-07 and -4.3982e-07 (computed as differences of numbers near -5,
+    where float32's spacing is 4.8e-07) are all -4.4703e-07 in JAX's float32
+    and -4.4703e-07, -4.1723e-07, -4.1723e-07 in the port's, so the two
+    filters keep the same components in other slots, and the next node's
+    first jmap_cap map components differ. Each frame the port's log-weights
+    are held to JAX's (rtol and atol 1e-4 in float32, 1e-10 in float64), where the
+    two orders differ the values swapped must lie within 8 spacings of each
+    other in the port's dtype, and the port then takes JAX's order."""
+
+    def __init__(self, k, dtype):
+        self.k, self.frames, self.flips = k, [], 0
+        self.tol = 1e-4 if dtype == "float32" else 1e-10
+        self.real_jax, self.real_port = jax.lax.top_k, tmixture.topk_stable
+
+    def jax_top_k(self, x, k):
+        if k == self.k:
+            jax.debug.callback(lambda v: self.frames.append(np.asarray(v).reshape(-1)), x, ordered=True)
+        return self.real_jax(x, k)
+
+    def port_topk(self, x, k):
+        if k != self.k:
+            return self.real_port(x, k)
+        want, got = self.frames.pop(0), x.reshape(-1).numpy()
+        assert x.numel() == want.size
+        live = (want > -1e29) | (got > -1e29)
+        np.testing.assert_allclose(got[live], want[live], rtol=self.tol, atol=self.tol)
+        order = np.argsort(-want, kind="stable")[:k]
+        own = self.real_port(x, k)[1].reshape(-1).numpy()
+        swapped = order != own
+        if swapped.any():
+            self.flips += 1
+            a, b = got[order[swapped]], got[own[swapped]]
+            assert (np.abs(a - b) <= 8 * np.spacing(np.maximum(np.abs(a), 1).astype(got.dtype))).all()
+        idx = torch.as_tensor(order).reshape(x.shape[:-1] + (k,))
+        return torch.gather(x, -1, idx), idx
 
 
 # -- RGB-D frontend ---------------------------------------------------------
