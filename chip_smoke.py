@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Smoke run of the PyTorch/CUDA port (monorfs_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--parent DIR] [--phases kernels,bench,sync,cli,graph,loopy,kinect,grid,parallel]
+    python3 chip_smoke.py [--parent DIR] [--phases kernels,bench,sync,cli,graph,loopy,kinect,grid,parallel,view]
 
 Phases, one line each; any failure exits non-zero:
   1. device, `nvidia-smi` name and power limit, kernel build (nvcc, sm_90a);
@@ -103,6 +103,24 @@ Phases, one line each; any failure exits non-zero:
      (100,000 particles, 10,240 landmarks x 128 poses): seconds a step,
      particle updates a second, seconds a Gauss-Newton iteration, peak
      memory. The phase's seconds are printed beside PARALLEL_BUDGET_S.
+ 12. `view`: the viewers, drawn on the card by the port's rasterizer
+     (monorfs_tpu_torch/render). manipulator.ManipulatorLoop over the 3D asset
+     world and mov3d.in at full width (200 particles, float32, the default
+     PHDConfig) with keys sent as a user would (i held over frames 20-40 with
+     shift over 30-40, m at 100 and 120, escape twice, delete at the end),
+     every 10th frame rendered by viewer3d.render_3d: the fused kernel
+     launched once per frame and the beam kernel once per SLAM frame,
+     postanalysis's ATE / OSPA finite. viewer.main over that recording: the 3D
+     overview, --flat, --frames at stride 30, two --tag and --tag-shots,
+     --avi at stride 10 read back (read_mjpeg) and decoded (decode_frames)
+     within a mean error of 3 levels of the rendered frames; the 2D overview
+     of phase 6's 2D recording (or a short new one). The sidebar of phase 9's
+     k9 recording (or of a short -i kinect run) decoded on the card and on
+     the CPU: equal. One frame rendered twice on the card: identical PNG
+     bytes; on the CPU: the largest difference and the pixels that differ.
+     ms per rendered frame (batched and alone), write_png ms, ms per decoded
+     frame (host Huffman, device), PNG bytes; the phase's seconds beside
+     VIEW_BUDGET_S. It runs inside the temporary directory after phase 10.
 Cuts for the time limit: phase 7 repeats the 3D `-a isam2` command over its
 first REPEAT_FRAMES of 300 frames; phase 8 runs the port's own s2 recording once
 (the repeat runs on the JAX recording) and its 3D run to LOOPY_BUDGET_S.
@@ -138,7 +156,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from monorfs_tpu_torch import (_build, bench_core, bench_flagship, bench_isam2, bench_scaling, cli,
-                               experiments_kinect, native, postanalysis)
+                               experiments_kinect, manipulator, native, postanalysis, viewer, viewer3d)
 from monorfs_tpu_torch.bench import BENCH_CONFIG, run as run_bench
 from monorfs_tpu_torch.config import Config
 from monorfs_tpu_torch.experiments import run_experiments, run_gpu_grid, summarize
@@ -146,11 +164,14 @@ from monorfs_tpu_torch.frontend.dataset import RGBDDataset, convert_tum
 from monorfs_tpu_torch.geometry import pose3d
 from monorfs_tpu_torch.gm.mixture import DEAD, SGM
 from monorfs_tpu_torch.io import Recording, World, parse_commands
+from monorfs_tpu_torch.io import avi
 from monorfs_tpu_torch.io.avi import jpeg_size, read_mjpeg
 from monorfs_tpu_torch.kernel_bounds import beam_bound, fused_bound
 from monorfs_tpu_torch.kernel_cases import beam_ties, fused_state
 from monorfs_tpu_torch.models import PRM3D
 from monorfs_tpu_torch.models import get as get_model
+from monorfs_tpu_torch.render import axes
+from monorfs_tpu_torch.render.png import encode_png, read_png
 from monorfs_tpu_torch.profile_step import (count_syncs, host_syncs, in_package, loopy_navigator,
                                             profile_kinect)
 from monorfs_tpu_torch.parallel import chain, dist_ba, make_mesh, make_sharded_step, multihost, shard_state
@@ -1504,13 +1525,194 @@ def parallel_phase(dev, kernels):
         k.setdefault("launches_by_path", {})["parallel"] = total[k["name"]]
 
 
+# ---- phase 12: the viewers -------------------------------------------------------
+
+VIEW_BUDGET_S = 90.0  # the phase's share of the script's time, printed beside its seconds
+VIEW_PARTICLES = 200
+VIEW_RENDER_EVERY = 10  # live frames rendered with viewer3d.render_3d
+VIEW_TIMING_BATCH = 16  # frames of one render call in the batched timing
+# The keys sent to the manipulator, by the frame they come before (a key
+# held from its press to its release): i over frames 20-40 with shift over
+# 30-40, m at 100 and at 120 (mapping, then SLAM again), escape twice at 150
+# (paused for one tick), delete once the command file is done.
+VIEW_KEYS = {20: [("press", "i")], 30: [("press", "shift")], 40: [("release", "shift"), ("release", "i")],
+             100: [("press", "m")], 120: [("press", "m")], 150: [("press", "escape")]}
+
+
+def drive_manipulator(dev, tmp):
+    """ManipulatorLoop over the 3D asset world and its command file at full
+    width (200 particles, float32, the default PHDConfig) with the keys of
+    VIEW_KEYS, rendering every VIEW_RENDER_EVERY-th frame; returns the
+    recording's path and the run's row."""
+    assets = pathlib.Path(__file__).resolve().parent / "assets"
+    commands = parse_commands((assets / "mov3d.in").read_text())
+    sim = Simulation(Config(), World.from_file(str(assets / "sim3d.world")), list(commands), algorithm="phd",
+                     particles=VIEW_PARTICLES, dtype=torch.float32, device=dev)
+    loop = manipulator.ManipulatorLoop(sim)
+    reset_launches()
+    t0, slam_frames, renders, render_s, paused_ticks = time.perf_counter(), 0, 0, 0.0, 0
+    sent = set()
+    while True:
+        if loop.frame not in sent:
+            sent.add(loop.frame)
+            for what, key in VIEW_KEYS.get(loop.frame, []):
+                (loop.on_press if what == "press" else loop.on_release)(key)
+        if loop.frame == len(commands):
+            loop.on_press("delete")
+        frame = loop.frame
+        if not loop.tick():
+            break
+        if loop.frame == frame:  # paused: no frame; escape again resumes
+            paused_ticks += 1
+            loop.on_press("escape")
+            continue
+        slam_frames += not sim.mode_mapping
+        if loop.frame % VIEW_RENDER_EVERY == 0:
+            t1 = time.perf_counter()
+            viewer3d.render_3d(sim.to_recording(), tmp / f"live_{loop.frame:05d}.png", device=dev)
+            render_s += time.perf_counter() - t1
+            renders += 1
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    want = {"fused_stage": loop.frame, "beam_scan": slam_frames}
+    if launches != want or paused_ticks != 1 or loop.frame != len(commands):
+        raise AssertionError(f"manipulator: launches {launches}, expected {want} (frames {loop.frame}, "
+                             f"SLAM {slam_frames}, paused ticks {paused_ticks})")
+    record = tmp / "manipulator.zip"
+    sim.save(str(record))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        postanalysis.main(["-f", str(record), "--device", str(dev)])
+    ate, ospa = printed_number(out.getvalue(), "ATE loc RMSE"), printed_number(out.getvalue(), "final OSPA")
+    if not (np.isfinite(ate) and np.isfinite(ospa)):
+        raise AssertionError(f"manipulator: ATE {ate}, OSPA {ospa}")
+    tags = [msg for _, msg in Recording.load(record).tags]
+    row = dict(frames=loop.frame, slam_frames=slam_frames, mapping_frames=loop.frame - slam_frames,
+               paused_ticks=paused_ticks, launches=launches, ate=ate, ospa=ospa, tags=tags, seconds=seconds,
+               live_renders=renders, live_render_s=render_s, particles=VIEW_PARTICLES, dtype="float32")
+    say("view-manipulator", **row)
+    return record, launches
+
+
+def view_viewer(dev, tmp, record):
+    """viewer.main over the manipulator's recording: the 3D overview, --flat,
+    --frames, two --tag, --tag-shots and --avi (read back and decoded); the
+    2D overview of a 2D recording."""
+    t0 = time.perf_counter()
+    n_maps = len(Recording.load(record).maps)
+    quiet = contextlib.redirect_stdout(io.StringIO())
+    with quiet:
+        viewer.main(["-f", str(record), "-o", str(tmp / "overview3d.png"), "--device", str(dev)])
+        viewer.main(["-f", str(record), "--flat", "-o", str(tmp / "flat.png"), "--device", str(dev)])
+        viewer.main(["-f", str(record), "--frames", str(tmp / "frames"), "--stride", "30", "--device", str(dev)])
+        viewer.main(["-f", str(record), "--tag", "2.0:first look", "--device", str(dev)])
+        viewer.main(["-f", str(record), "--tag", "6.5:second look", "--device", str(dev)])
+        viewer.main(["-f", str(record), "--tag-shots", str(tmp / "tags"), "--device", str(dev)])
+        viewer.main(["-f", str(record), "--avi", str(tmp / "replay.avi"), "--stride", "10", "--device", str(dev)])
+    rec = Recording.load(record)
+    frames = sorted((tmp / "frames").iterdir())
+    shots = sorted((tmp / "tags").iterdir())
+    if len(frames) != -(-n_maps // 30) or len(shots) != len(rec.tags) or len(rec.tags) < 2:
+        raise AssertionError(f"viewer: {len(frames)} frames of {n_maps} maps at stride 30, "
+                             f"{len(shots)} tag shots for tags {rec.tags}")
+    for png in [tmp / "overview3d.png", tmp / "flat.png", frames[0], shots[0]]:
+        img = read_png(png)
+        if img.ndim != 3 or not (img != 255).any():
+            raise AssertionError(f"viewer: {png.name} is blank ({img.shape})")
+    jpegs = read_mjpeg(str(tmp / "replay.avi"))
+    decoded = avi.decode_frames(jpegs, device=dev)
+    idx = list(range(0, n_maps, 10))
+    rendered = viewer.render_images([viewer.overview_figure(rec, i) for i in idx], dev)
+    errors = [float(np.abs(d.astype(np.float64) - r.cpu().numpy()).mean()) for d, r in zip(decoded, rendered)]
+    if len(jpegs) != len(idx) or decoded[0].shape != (viewer.SIZE[1], viewer.SIZE[0], 3) or max(errors) >= 3:
+        raise AssertionError(f"--avi: {len(jpegs)} frames for {len(idx)}, shape {decoded[0].shape}, "
+                             f"mean errors {errors} (limit 3, tests/test_torch_avi.py)")
+    # a 2D recording: phase 6's, or a short new one
+    rec2d = tmp / "2d-slam.zip"
+    if not rec2d.is_file():
+        rec2d = tmp / "view-2d.zip"
+        assets = pathlib.Path(__file__).resolve().parent / "assets"
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["-f", str(assets / "linear2d.world"), "-c", str(assets / "mov2d.in"), "-a", "phd", "-p",
+                      "50", "--frames", "60", "-r", str(rec2d), "--device", str(dev)])
+    with contextlib.redirect_stdout(io.StringIO()):
+        viewer.main(["-f", str(rec2d), "-o", str(tmp / "overview2d.png"), "--device", str(dev)])
+    if not (read_png(tmp / "overview2d.png") != 255).any():
+        raise AssertionError("viewer: the 2D overview is blank")
+    say("view-viewer", frames=len(frames), tag_shots=len(shots), tags=[m for _, m in rec.tags],
+        avi_frames=len(jpegs), avi_mean_abs_error_max=max(errors), avi_error_limit=3,
+        recording_2d=rec2d.name, seconds=time.perf_counter() - t0)
+    return rec
+
+
+def view_decoder(dev, tmp):
+    """The sidebar of the k9 Kinect recording (phase 9) or of a short
+    `-i kinect` run, decoded on the card and on the CPU: equal."""
+    record = tmp / "k9" / "chap4-k9" / "phd.zip"
+    if not record.is_file():
+        record = tmp / "view-kinect.zip"
+        npz = tmp / "view-seq.npz"
+        convert_tum(str(TUM_REAL), str(npz))
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["-f", str(npz), "-i", "kinect", "-a", "odometry", "-r", str(record), "--device", str(dev)])
+    jpegs = read_mjpeg(io.BytesIO(Recording.load(record).sidebar))
+    card, host = avi.decode_frames(jpegs, device=dev), avi.decode_frames(jpegs, device="cpu")
+    diff = max(int(np.abs(a.astype(np.int64) - b).max(axis=(0, 1)).max()) for a, b in zip(card, host))
+    if diff != 0 or len(card) != len(jpegs):
+        raise AssertionError(f"sidebar decode: card against CPU differs by {diff}")
+    parsed, t0 = [], time.perf_counter()
+    for j in jpegs:
+        parsed.append(avi.parse_jpeg(j))
+    host_ms = (time.perf_counter() - t0) * 1e3 / len(jpegs)
+    device_ms = cuda_ms(lambda: [avi.reconstruct(p, dev) for p in parsed], 5) / len(jpegs)
+    say("view-decoder", recording=str(record.relative_to(tmp)), frames=len(jpegs),
+        size=list(card[0].shape), card_vs_cpu_max_abs_diff=diff, host_huffman_ms_per_frame=host_ms,
+        device_ms_per_frame=device_ms, mean_jpeg_bytes=sum(map(len, jpegs)) / len(jpegs))
+    return host_ms, device_ms
+
+
+def view_phase(dev, kernels, tmp):
+    """Phase 12: the manipulator, the viewers, the decoder, determinism."""
+    graph.assert_full_precision()
+    t_phase = time.perf_counter()
+    record, launches = drive_manipulator(dev, tmp)
+    rec = view_viewer(dev, tmp, record)
+    host_ms, device_ms = view_decoder(dev, tmp)
+    # determinism: the same frame twice on the card, then on the CPU
+    fig = viewer3d.figure_3d(rec, len(rec.maps) - 1)
+    a, b = (axes.render([fig], dev)[0].cpu().numpy() for _ in range(2))
+    png_a, png_b = encode_png(a), encode_png(b)
+    if png_a != png_b:
+        raise AssertionError("two renders of one frame on the card differ")
+    host = axes.render([fig], "cpu")[0].numpy()
+    differ = np.abs(a.astype(np.int64) - host)
+    # timings: a batch of frames in one call, one frame alone, write_png
+    figs = [viewer3d.figure_3d(rec, i) for i in np.linspace(0, len(rec.maps) - 1, VIEW_TIMING_BATCH).astype(int)]
+    batched_ms = cuda_ms(lambda: axes.render(figs, dev), 3) / len(figs)
+    alone_ms = cuda_ms(lambda: axes.render(figs[:1], dev), 5)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        encode_png(a)
+    png_ms = (time.perf_counter() - t0) * 1e3 / 5
+    seconds = time.perf_counter() - t_phase
+    say("view-summary", repeat_png_identical=True, card_vs_cpu_max_abs_diff=int(differ.max()),
+        card_vs_cpu_pixels_differ=int((differ.max(-1) > 0).sum()), render_ms_per_frame_batched=batched_ms,
+        render_batch=len(figs), render_ms_alone=alone_ms, write_png_ms=png_ms, png_bytes=len(png_a),
+        frame_size=list(a.shape), decode_host_ms_per_frame=host_ms, decode_device_ms_per_frame=device_ms,
+        phase_seconds=seconds, budget_s=VIEW_BUDGET_S, within_budget=seconds <= VIEW_BUDGET_S,
+        launches=launches)
+    for k in kernels:
+        k["launches"] = k.get("launches", 0) + launches[k["name"]]
+        k.setdefault("launches_by_path", {})["view"] = launches[k["name"]]
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=pathlib.Path, default=None,
                     help="another checkout whose kernels are timed on the same inputs")
-    ap.add_argument("--phases", default="kernels,bench,sync,cli,graph,loopy,kinect,grid,parallel",
+    ap.add_argument("--phases", default="kernels,bench,sync,cli,graph,loopy,kinect,grid,parallel,view",
                     help="comma-separated subset of kernels,bench,sync,cli,graph,loopy,kinect,grid,"
-                         "parallel (default: all)")
+                         "parallel,view (default: all)")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -1561,6 +1763,8 @@ def main():
             kinect_phase(dev, kernels, tmp)
         if "grid" in phases:
             grid_phase(dev, kernels, tmp)
+        if "view" in phases:
+            view_phase(dev, kernels, tmp)
     if "parallel" in phases:
         parallel_phase(dev, kernels)
 

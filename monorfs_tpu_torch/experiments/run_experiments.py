@@ -6,8 +6,7 @@ Mirrors mono-rfs/plots/scripts/** (e.g. chap3/S1-phd-odometry.sh:13-33,
 chap4/S1-baseline.sh, chap5/S2-standard.sh): each experiment solves a world
 with one or more algorithms through monorfs_tpu_torch.cli (re-solving the
 identical recorded data where the reference does), runs postanalysis, and
-renders plots where matplotlib imports (else it prints one `plot-skipped`
-line naming the file; the .data series are always written).
+renders its plots with the port's own rasterizer (no matplotlib).
 
 Usage:
   python -m monorfs_tpu_torch.experiments.run_experiments chap3-s1 [--outdir experiments/out-h100-grid]
@@ -66,36 +65,26 @@ def analyze(recfile, outdir, mode="timed"):
     }
 
 
+PLOT_SIZE, PLOT_DPI = (840, 480), 120.0  # the JAX plot: figsize (7, 4) at dpi 120
+
+
 def plot_series(recfiles, labels, metric, output, title):
     """topdf.py equivalent: render .data series to png
-    (reference: plots/scripts/topdf.py:30-301)."""
-    try:
-        import matplotlib
-    except ImportError:
-        print(f"plot-skipped {output} (no matplotlib; the .data series are written)", flush=True)
-        return
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
+    (reference: plots/scripts/topdf.py:30-301), drawn on DEVICE by the
+    port's rasterizer: one line a recording, axes, legend and title."""
+    from ..render import axes
+    from ..render.png import write_png
 
-    fig, ax = plt.subplots(figsize=(7, 4))
+    calls = []
     for rec, label in zip(recfiles, labels):
-        path = f"{rec}.{metric}.data"
-        xs, ys = [], []
         try:
-            with open(path) as f:
-                for line in f:
-                    t, v = line.split()
-                    xs.append(float(t))
-                    ys.append(float(v))
+            series = np.loadtxt(f"{rec}.{metric}.data", ndmin=2)
         except FileNotFoundError:
             continue
-        ax.plot(xs, ys, label=label, lw=1.0)
-    ax.set_xlabel("time [s]")
-    ax.set_ylabel(metric)
-    ax.set_title(title)
-    ax.legend()
-    fig.savefig(output, dpi=120, bbox_inches="tight")
-    plt.close(fig)
+        calls.append(axes.Call("plot", (series[:, 0], series[:, 1]), "", dict(label=label, lw=1.0)))
+    fig = axes.Figure(calls, title=title, size=PLOT_SIZE, dpi=PLOT_DPI, equal=False, xlabel="time [s]",
+                      ylabel=metric, legend="best")
+    write_png(output, axes.render([fig], DEVICE)[0])
 
 
 def chap3_s1(outdir, particles=100):

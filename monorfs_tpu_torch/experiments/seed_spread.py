@@ -3,11 +3,16 @@ same row, and whether the row closes.
 
     python -m monorfs_tpu_torch.experiments.seed_spread
 
-Reads the port's seeds 0-9 (experiments/out-h100/<exp>.seeds.json, written
-by run_gpu_grid --seeds) and the JAX package's seeds 0-9 of the same
-experiment on its CPU (seeds 0-2 in experiments/out/<exp>.seeds.json, 3-9
-in experiments/out-jax-cpu/<exp>.seeds.json, both written by
-experiments/run_experiments.py --seeds). For each row below, on the metric
+Reads the port's seeds (experiments/out-h100/<exp>.seeds.json, written by
+run_gpu_grid --seeds, and for chap3-s4 by run_experiments --seeds) and the
+JAX package's seeds of the same experiment on its CPU (seeds 0-2 of the
+chap5 rows in experiments/out/<exp>.seeds.json, the others in
+experiments/out-jax-cpu/<exp>.seeds.json, written by
+experiments/run_experiments.py --seeds; chap3-s4's seed 0 there is the
+20-particle row of experiments/out/chap3-s4.stats.json and seeds 1-9 ran
+the 20-particle leg alone, chap3_s4(outdir, sweep=(20,)) with SEED set).
+chap5-s2 has seeds 0-19 of both packages, the other rows 0-9. For each
+row below, on the metric
 the row missed at seed 0, it prints both samples' mean, median, min-max,
 quartiles and the seeds under the row's limits (summarize.held, the rule
 every grid row is held to), a two-sided Mann-Whitney U test, and the
@@ -25,10 +30,12 @@ from .summarize import HERE, JAX_CPU, THESIS_GRID, held
 
 PORT = HERE / "out-h100"
 JAX_MORE = HERE / "out-jax-cpu"
-# (experiment, algorithm, metric the row missed at seed 0, grid): the six
-# rows PR 7's grids missed at seed 0 whose seeds both packages have run;
-# run_experiments' (THESIS_GRID) chap5 rows are the run_gpu_grid runs
+# (experiment, algorithm, metric the row missed at seed 0, grid): the rows
+# the grids missed at seed 0 whose seeds both packages have run;
+# run_experiments' (THESIS_GRID) chap5 rows are the run_gpu_grid runs, and
+# chap3-s4's stats are keyed by particle count
 ROWS = [
+    ("chap3-s4", "20", "ate_loc_rmse", THESIS_GRID),
     ("chap5-s2", "phd", "final_ospa", "out-h100"),
     ("chap5-k3", "loopy", "final_ospa", "out-h100"),
     ("chap5-k3", "loopy", "final_ospa", THESIS_GRID),
@@ -39,10 +46,11 @@ ROWS = [
 
 
 def seeds(*files):
-    """{seed: stats} of one or more *.seeds.json."""
+    """{seed: stats} of the *.seeds.json among files that exist."""
     out = {}
     for f in files:
-        out.update({int(k): v for k, v in json.load(open(f)).items()})
+        if f.is_file():
+            out.update({int(k): v for k, v in json.load(open(f)).items()})
     return dict(sorted(out.items()))
 
 

@@ -1,6 +1,7 @@
-"""Minimal MJPEG AVI writer / reader with a baseline JPEG encoder in NumPy:
-the torch port's counterpart of monorfs_tpu.io.avi, which encodes through
-PIL. This one needs only NumPy and the standard library.
+"""Minimal MJPEG AVI writer / reader with a baseline JPEG encoder in NumPy
+and a baseline JPEG decoder whose pixel work runs on the device: the torch
+port's counterpart of monorfs_tpu.io.avi, which encodes and decodes through
+PIL. This one needs only NumPy, PyTorch and the standard library.
 
 The reference recording embeds a `sidebar.avi` with the sensor view
 (Simulation.cs:391-488 writes it via Util.SaveAsAvi, Util.cs:297-378). The
@@ -8,11 +9,29 @@ container is AVI 1.0 RIFF with one MJPG video stream, one JPEG per frame and
 the idx1 index. The encoder writes baseline JFIF (ITU T.81): 8x8 DCT, the
 Annex K quantisation tables scaled by quality as the IJG library scales
 them, the Annex K Huffman tables, no chroma subsampling; a [H, W] frame is
-one grey component, a [H, W, 3] frame YCbCr."""
+one grey component, a [H, W, 3] frame YCbCr.
+
+The decoder (`jpeg_decode`, `decode_frames`) reads baseline sequential JPEG
+(SOF0) with one or three components at the sampling factors 4:4:4, 4:2:2
+and 4:2:0 (the JAX package's PIL encodings are 4:2:0, this module's 4:4:4),
+with restart intervals, in one interleaved scan or one scan a component,
+at any size. Progressive, lossless and arithmetic-coded JPEG raise. The
+Huffman decoding is serial and runs on the host (`parse_jpeg`); then for the
+whole frame at once on the device (`reconstruct`): the dequantisation,
+the 8x8 IDCT of every block at once in libjpeg's own integer arithmetic
+(its "islow" IDCT, jidctint.c, the method PIL decodes with), the
+upsampling of subsampled chroma with libjpeg's "fancy" triangular filter
+(PIL's default), and YCbCr to RGB with libjpeg's fixed-point tables and
+rounding. All of it is integer arithmetic, so the pixels equal PIL's
+(libjpeg's) and are the same on every device.
+"""
 
 import struct
 
 import numpy as np
+import torch
+
+from .. import resolve_device
 
 # ITU T.81 Annex K: luminance / chrominance quantisation (natural order)
 _Q_LUMA = np.array([
@@ -306,3 +325,307 @@ def read_mjpeg(path_or_file):
 
     walk(data, 12, len(data))
     return frames
+
+
+# ---- decoding -------------------------------------------------------------------
+
+_FIX16 = lambda x: int(x * 65536 + 0.5)  # libjpeg's FIX() at SCALEBITS 16
+
+
+def _decode_lut(counts, symbols):
+    """(length, symbol) lists indexed by the next 16 bits of the stream."""
+    length = [0] * 65536
+    symbol = [0] * 65536
+    code, k = 0, 0
+    for n_bits, n in enumerate(counts, start=1):
+        for _ in range(n):
+            lo = code << (16 - n_bits)
+            span = 1 << (16 - n_bits)
+            length[lo:lo + span] = [n_bits] * span
+            symbol[lo:lo + span] = [symbols[k]] * span
+            code, k = code + 1, k + 1
+        code <<= 1
+    return length, symbol
+
+
+def _entropy_segments(data, pos):
+    """The scan's entropy-coded bytes from pos, split at its restart
+    markers and unstuffed; returns (segments, position of the next marker)."""
+    end = pos
+    while True:
+        end = data.find(b"\xff", end)
+        if end < 0 or end + 1 >= len(data):
+            raise ValueError("JPEG scan runs past the end of the data")
+        nxt = data[end + 1]
+        if nxt == 0x00 or 0xD0 <= nxt <= 0xD7 or nxt == 0xFF:
+            end += 2 if nxt != 0xFF else 1
+            continue
+        break
+    raw = data[pos:end]
+    segments, start, i = [], 0, raw.find(b"\xff")
+    while i >= 0:
+        if i + 1 < len(raw) and 0xD0 <= raw[i + 1] <= 0xD7:
+            segments.append(raw[start:i])
+            start = i + 2
+        i = raw.find(b"\xff", i + 2 if i + 1 < len(raw) and raw[i + 1] == 0 else i + 1)
+    segments.append(raw[start:])
+    return [seg.replace(b"\xff\x00", b"\xff") for seg in segments], end
+
+
+def _decode_scan(segments, comps, blocks_of, restart, n_units, coef, luts):
+    """Huffman-decode one scan into coef[c] (int32 [rows, cols, 64],
+    natural order). comps: the scan's component ids; blocks_of(unit) the
+    (component, block row, block col) of each block of a unit (an MCU, or
+    one block of a single-component scan)."""
+    zz = ZIGZAG.tolist()
+    per_segment = restart or n_units
+    unit = 0
+    for seg in segments:
+        buf = seg + b"\x00\x00\x00\x00"
+        pos = 0
+        pred = {c: 0 for c in comps}
+        for _ in range(min(per_segment, n_units - unit)):
+            for c, by, bx in blocks_of(unit):
+                dc_len, dc_sym, ac_len, ac_sym = luts[c]
+                out = coef[c][by, bx]
+                b = pos >> 3
+                peek = ((buf[b] << 16 | buf[b + 1] << 8 | buf[b + 2]) >> (8 - (pos & 7))) & 0xFFFF
+                n = dc_len[peek]
+                if not n:
+                    raise ValueError("corrupt JPEG: no DC Huffman code matches")
+                s = dc_sym[peek]
+                pos += n
+                v = 0
+                if s:
+                    b = pos >> 3
+                    v = ((buf[b] << 24 | buf[b + 1] << 16 | buf[b + 2] << 8 | buf[b + 3])
+                         >> (32 - (pos & 7) - s)) & ((1 << s) - 1)
+                    pos += s
+                    if v < 1 << (s - 1):
+                        v -= (1 << s) - 1
+                pred[c] += v
+                out[0] = pred[c]
+                k = 1
+                while k < 64:
+                    b = pos >> 3
+                    peek = ((buf[b] << 16 | buf[b + 1] << 8 | buf[b + 2]) >> (8 - (pos & 7))) & 0xFFFF
+                    n = ac_len[peek]
+                    if not n:
+                        raise ValueError("corrupt JPEG: no AC Huffman code matches")
+                    rs = ac_sym[peek]
+                    pos += n
+                    r, s = rs >> 4, rs & 15
+                    if not s:
+                        if r != 15:
+                            break
+                        k += 16
+                        continue
+                    k += r
+                    b = pos >> 3
+                    v = ((buf[b] << 24 | buf[b + 1] << 16 | buf[b + 2] << 8 | buf[b + 3])
+                         >> (32 - (pos & 7) - s)) & ((1 << s) - 1)
+                    pos += s
+                    if v < 1 << (s - 1):
+                        v -= (1 << s) - 1
+                    out[zz[k]] = v
+                    k += 1
+            unit += 1
+        if unit >= n_units:
+            break
+
+
+def parse_jpeg(data):
+    """Markers and Huffman decoding on the host: a dict with the frame's
+    size, each component's sampling factors, quantisation table and
+    coefficients (int32 [block rows, block cols, 64], natural order)."""
+    data = bytes(data)
+    if data[:2] != b"\xff\xd8":
+        raise ValueError("not a JPEG (no SOI marker)")
+    qt, huff, restart, frame = {}, {}, 0, None
+    pos = 2
+    while pos < len(data):
+        if data[pos] != 0xFF:
+            raise ValueError(f"JPEG: expected a marker at byte {pos}")
+        marker = data[pos + 1]
+        if marker == 0xFF:
+            pos += 1
+            continue
+        if marker == 0xD9:
+            break
+        (length,) = struct.unpack(">H", data[pos + 2:pos + 4])
+        body = data[pos + 4:pos + 2 + length]
+        if marker == 0xDB:
+            i = 0
+            while i < len(body):
+                pq, tq = body[i] >> 4, body[i] & 15
+                n = 128 if pq else 64
+                vals = np.frombuffer(body[i + 1:i + 1 + n], ">u2" if pq else "u1").astype(np.int32)
+                table = np.zeros(64, np.int32)
+                table[ZIGZAG] = vals
+                qt[tq] = table
+                i += 1 + n
+        elif marker == 0xC4:
+            i = 0
+            while i < len(body):
+                tc, th = body[i] >> 4, body[i] & 15
+                counts = list(body[i + 1:i + 17])
+                symbols = list(body[i + 17:i + 17 + sum(counts)])
+                huff[(tc, th)] = _decode_lut(counts, symbols)
+                i += 17 + sum(counts)
+        elif marker == 0xDD:
+            (restart,) = struct.unpack(">H", body[:2])
+        elif marker == 0xC0:
+            _, h, w, nc = struct.unpack(">BHHB", body[:6])
+            comps = {}
+            for k in range(nc):
+                cid, hv, tq = body[6 + 3 * k:9 + 3 * k]
+                comps[cid] = dict(h=hv >> 4, v=hv & 15, tq=tq, order=k)
+            hmax = max(c["h"] for c in comps.values())
+            vmax = max(c["v"] for c in comps.values())
+            mcux, mcuy = -(-w // (8 * hmax)), -(-h // (8 * vmax))
+            for c in comps.values():
+                c["coef"] = np.zeros((mcuy * c["v"], mcux * c["h"], 64), np.int32)
+            frame = dict(width=w, height=h, hmax=hmax, vmax=vmax, mcux=mcux, mcuy=mcuy, comps=comps)
+        elif marker in (0xC1, 0xC2, 0xC3, 0xC5, 0xC6, 0xC7, 0xC9, 0xCA, 0xCB, 0xCD, 0xCE, 0xCF):
+            kind = "arithmetic-coded" if marker >= 0xC9 else {0xC2: "progressive", 0xC3: "lossless"}.get(
+                marker, "extended or hierarchical")
+            raise ValueError(f"JPEG SOF{marker - 0xC0} ({kind}) is not read: baseline (SOF0) only")
+        elif marker == 0xDA:
+            if frame is None:
+                raise ValueError("JPEG: scan before the frame header")
+            ns = body[0]
+            scan = [(body[1 + 2 * k], body[2 + 2 * k] >> 4, body[2 + 2 * k] & 15) for k in range(ns)]
+            coef, luts = {}, {}
+            for cid, td, ta in scan:
+                coef[cid] = frame["comps"][cid]["coef"]
+                luts[cid] = huff[(0, td)] + huff[(1, ta)]
+            if ns == 1:
+                c = frame["comps"][scan[0][0]]
+                cols = -(-(-(-frame["width"] * c["h"] // frame["hmax"])) // 8)
+                rows = -(-(-(-frame["height"] * c["v"] // frame["vmax"])) // 8)
+                cid = scan[0][0]
+                blocks_of = lambda u: ((cid, u // cols, u % cols),)
+                n_units = rows * cols
+            else:
+                layout = [(cid, dv, dh) for cid, _, _ in scan
+                          for dv in range(frame["comps"][cid]["v"]) for dh in range(frame["comps"][cid]["h"])]
+                mcux = frame["mcux"]
+                blocks_of = lambda u: [(cid, (u // mcux) * frame["comps"][cid]["v"] + dv,
+                                        (u % mcux) * frame["comps"][cid]["h"] + dh) for cid, dv, dh in layout]
+                n_units = frame["mcux"] * frame["mcuy"]
+            segments, pos = _entropy_segments(data, pos + 2 + length)
+            _decode_scan(segments, [s[0] for s in scan], blocks_of, restart, n_units, coef, luts)
+            continue
+        pos += 2 + length
+    if frame is None:
+        raise ValueError("JPEG: no frame header")
+    for c in frame["comps"].values():
+        c["q"] = qt[c["tq"]]
+    return frame
+
+
+# jidctint.c's fixed-point constants: FIX(c) = round(c * 2^13)
+_C = dict(c0298=2446, c0390=3196, c0541=4433, c0765=6270, c0899=7373, c1175=9633, c1501=12299,
+          c1847=15137, c1961=16069, c2053=16819, c2562=20995, c3072=25172)
+
+
+def _idct_1d(v, shift):
+    """One pass of libjpeg's islow IDCT (jidctint.c, Loeffler-Ligtenberg-
+    Moschytz with 13-bit constants) over the eight tensors v, each descaled
+    by `shift` bits with rounding."""
+    k = _C
+    z1 = (v[2] + v[6]) * k["c0541"]
+    tmp2 = z1 - v[6] * k["c1847"]
+    tmp3 = z1 + v[2] * k["c0765"]
+    tmp0, tmp1 = (v[0] + v[4]) << 13, (v[0] - v[4]) << 13
+    tmp10, tmp13, tmp11, tmp12 = tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2, tmp1 - tmp2
+    t0, t1, t2, t3 = v[7], v[5], v[3], v[1]
+    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
+    z5 = (z3 + z4) * k["c1175"]
+    t0, t1, t2, t3 = t0 * k["c0298"], t1 * k["c2053"], t2 * k["c3072"], t3 * k["c1501"]
+    z1, z2 = z1 * -k["c0899"], z2 * -k["c2562"]
+    z3, z4 = z3 * -k["c1961"] + z5, z4 * -k["c0390"] + z5
+    t0, t1, t2, t3 = t0 + z1 + z3, t1 + z2 + z4, t2 + z2 + z3, t3 + z1 + z4
+    half = 1 << (shift - 1)
+    return [(x + half) >> shift for x in (tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0,
+                                           tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3)]
+
+
+def _range_limit(device):
+    """libjpeg's post-IDCT range-limit table, indexed by sample & 1023."""
+    t = torch.zeros(1024, dtype=torch.int64, device=device)
+    t[:128] = torch.arange(128, 256)
+    t[128:512] = 255
+    t[896:] = torch.arange(128)
+    return t
+
+
+def _idct_plane(coef, q, rows, cols):
+    """Samples [rows, cols] (int64) of one component from its coefficient
+    blocks [br, bc, 64] (a tensor on the device): dequantised, libjpeg's
+    islow IDCT (columns, then rows), range-limited as libjpeg limits."""
+    br, bc = coef.shape[:2]
+    x = (coef.reshape(-1, 8, 8).to(torch.int64) * q.reshape(8, 8).to(torch.int64))
+    ws = torch.stack(_idct_1d([x[:, r, :] for r in range(8)], 13 - 2), 1)  # PASS1_BITS 2
+    out = torch.stack(_idct_1d([ws[:, :, c] for c in range(8)], 13 + 2 + 3), 2)
+    samples = _range_limit(coef.device)[out & 1023]
+    plane = samples.reshape(br, bc, 8, 8).permute(0, 2, 1, 3).reshape(br * 8, bc * 8)
+    return plane[:rows, :cols]
+
+
+def _fancy_h2(x, rows_too):
+    """libjpeg's h2v1 / h2v2 fancy upsampling of an int64 plane, its
+    edge columns (and rows) replicated as libjpeg replicates them."""
+    if rows_too:
+        pad = torch.cat([x[:1], x, x[-1:]], 0)
+        up = pad[:-2] + 3 * x  # the nearer row weighs 3, the farther 1
+        down = pad[2:] + 3 * x
+        colsum = torch.stack([up, down], 1).reshape(2 * x.shape[0], x.shape[1])
+        bias_even, bias_odd, shift = 8, 7, 4
+    else:
+        colsum = x
+        bias_even, bias_odd, shift = 1, 2, 2
+    p = torch.cat([colsum[:, :1], colsum, colsum[:, -1:]], 1)
+    even = (3 * colsum + p[:, :-2] + bias_even) >> shift
+    odd = (3 * colsum + p[:, 2:] + bias_odd) >> shift
+    return torch.stack([even, odd], 2).reshape(colsum.shape[0], 2 * colsum.shape[1])
+
+
+def reconstruct(frame, device):
+    """The decoded frame, uint8 [H, W, 3] on device, from parse_jpeg's
+    coefficients: dequantise, IDCT, upsample, YCbCr -> RGB."""
+    w, h, hmax, vmax = frame["width"], frame["height"], frame["hmax"], frame["vmax"]
+    planes = []
+    for c in sorted(frame["comps"].values(), key=lambda c: c["order"]):
+        rows, cols = -(-h * c["v"] // vmax), -(-w * c["h"] // hmax)
+        coef = torch.as_tensor(c["coef"], device=device)
+        x = _idct_plane(coef, torch.as_tensor(c["q"], device=device), rows, cols)
+        fh, fv = hmax // c["h"], vmax // c["v"]
+        if (fh, fv) in ((2, 1), (2, 2)) and cols > 2:
+            x = _fancy_h2(x, fv == 2)
+        elif (fh, fv) != (1, 1):  # libjpeg's plain replication
+            x = x.repeat_interleave(fv, 0).repeat_interleave(fh, 1)
+        planes.append(x[:h, :w])
+    if len(planes) == 1:
+        return planes[0].to(torch.uint8)[..., None].expand(h, w, 3).contiguous()
+    if len(planes) != 3:
+        raise ValueError(f"JPEG with {len(planes)} components: 1 or 3 are read")
+    y, cb, cr = planes
+    cb, cr = cb - 128, cr - 128
+    half = 1 << 15
+    r = y + ((_FIX16(1.40200) * cr + half) >> 16)
+    g = y + ((-_FIX16(0.34414) * cb + half - _FIX16(0.71414) * cr) >> 16)
+    b = y + ((_FIX16(1.77200) * cb + half) >> 16)
+    return torch.clamp(torch.stack([r, g, b], -1), 0, 255).to(torch.uint8)
+
+
+def jpeg_decode(data, device="cuda"):
+    """uint8 [H, W, 3] tensor on device of one baseline JPEG."""
+    return reconstruct(parse_jpeg(data), resolve_device(device))
+
+
+def decode_frames(jpegs, device="cuda"):
+    """Decode JPEG payloads to uint8 RGB [H, W, 3] arrays (the pixel work
+    on device)."""
+    dev = resolve_device(device)
+    return [reconstruct(parse_jpeg(j), dev).cpu().numpy() for j in jpegs]

@@ -183,14 +183,21 @@ def set_log_likelihood(ll, log_miss, log_clutter, n_mask, m_mask, beam_width,
     return logsumexp_scores(beam_scan(base, od, wk, bk, beam_width, n_words))
 
 
-def association_matrices(model, pose, map_means, meas_cov, pd):
-    """Association pieces of the quasi variant (SetLogLikeMatrix,
-    PHDNavigator.cs:567-635: constant PD; the filter's fuzzy-visibility
-    variant is phd.weight_inputs). pose [..., S] broadcasts against
-    map_means [..., N, 3] through a singleton landmark axis. Returns
+def association_matrices(model, pose, map_means, meas_cov, pd, fuzzy_pd=False, ramp=None,
+                         depth_map=None):
+    """Association pieces (SetLogLikeMatrix, PHDNavigator.cs:415-453 / the
+    quasi variant :567-635). pose [..., S] broadcasts against map_means
+    [..., N, 3] through a singleton landmark axis. With fuzzy_pd=False
+    (the quasi variant, every caller in the port) PD is the constant pd;
+    with fuzzy_pd=True it is the model's fuzzy visibility of each predicted
+    measurement under `ramp`, times pd, a depth-occlusion model (Kinect)
+    seeing through `depth_map` (model.fuzzy_visible_fn). Returns
     (mu [..., N, D], log_pd [..., N], log_miss [..., N], r_inv [D, D], logmult)."""
     mu = model.measure(model.params, pose[..., None, :], map_means)
-    pdv = torch.as_tensor(pd, dtype=mu.dtype, device=mu.device).expand(mu.shape[:-1])
+    if fuzzy_pd:
+        pdv = model.fuzzy_visible_fn(depth_map)(model.params, mu, ramp) * pd
+    else:
+        pdv = torch.as_tensor(pd, dtype=mu.dtype, device=mu.device).expand(mu.shape[:-1])
     pdv = torch.clamp(pdv, 1e-30, 1.0 - 1e-7)
     return mu, torch.log(pdv), torch.log1p(-pdv), gaussian.inv(meas_cov), gaussian.log_multiplier(meas_cov)
 

@@ -105,3 +105,53 @@ def test_set_log_likelihood_matches_jax():
             jnp.asarray(n_mask[i]), jnp.asarray(m_mask[i]), 64, max_candidates=8,
         )
         np.testing.assert_allclose(out[i].item(), float(ref), rtol=0, atol=1e-5)
+
+
+KINECT_PARAMS = dict(focal=57.58, film_left=-32.0, film_top=-24.0, film_width=64.0, film_height=48.0,
+                     range_min=0.1, range_max=2.0, res_x=64.0, res_y=48.0, border=2)
+
+
+def _fuzzy_inputs(seed, n=60):
+    rng = np.random.default_rng(seed)
+    q = np.array([1.0, 0, 0, 0]) + rng.normal(0, 0.05, 4)
+    pose = np.concatenate([rng.normal(0, 0.05, 3), q / np.linalg.norm(q)])
+    means = np.column_stack([rng.uniform(-1, 1, n), rng.uniform(-0.8, 0.8, n), rng.uniform(-0.2, 2.4, n)])
+    a = rng.normal(0, 1, (3, 3))
+    meas_cov = a @ a.T * 0.01 + np.eye(3) * 0.01
+    depth = np.full((48, 64), 1.4) + rng.normal(0, 0.01, (48, 64))
+    depth[10:30, 20:40] = 0.7
+    depth[35:42, 5:15] = np.nan
+    return pose, means, meas_cov, depth
+
+
+@pytest.mark.parametrize("model_name", ["PRM3D", "Kinect"])
+@pytest.mark.parametrize("jdt,tdt,tol", [(jnp.float64, torch.float64, 1e-12), (jnp.float32, torch.float32, 1e-5)])
+def test_fuzzy_pd_matches_jax(model_name, jdt, tdt, tol):
+    """association_matrices(..., fuzzy_pd=True) against the JAX function:
+    PD is the model's fuzzy visibility times pd, the Kinect model's through
+    its depth map; the constant-PD default is unchanged."""
+    from monorfs_tpu.models import get as jget
+    from monorfs_tpu.models import kinect_model as jkm
+    from monorfs_tpu_torch.models import get as tget
+    from monorfs_tpu_torch.models import kinect_model as tkm
+
+    jm, tm = jget(model_name), tget(model_name)
+    if model_name == "Kinect":
+        jm, tm = jm.with_params(jkm.Params(**KINECT_PARAMS)), tm.with_params(tkm.Params(**KINECT_PARAMS))
+    ramp = np.array([3.0, 3.0, 0.05]) if model_name == "Kinect" else np.array([30.0, 30.0, 0.1])
+    for seed in range(3):
+        pose, means, meas_cov, depth = _fuzzy_inputs(seed)
+        jdepth = jnp.asarray(depth, jdt) if model_name == "Kinect" else None
+        tdepth = torch.tensor(depth, dtype=tdt) if model_name == "Kinect" else None
+        for fuzzy in (True, False):
+            want = jassoc.association_matrices(
+                jm, jnp.asarray(pose, jdt), jnp.asarray(means, jdt), jnp.ones(len(means), bool),
+                jnp.asarray(meas_cov, jdt), 0.9, jnp.asarray(ramp, jdt), 5.0, fuzzy, jdepth)
+            got = association.association_matrices(
+                tm, torch.tensor(pose, dtype=tdt), torch.tensor(means, dtype=tdt), torch.tensor(meas_cov, dtype=tdt),
+                0.9, fuzzy_pd=fuzzy, ramp=torch.tensor(ramp, dtype=tdt), depth_map=tdepth)
+            for g, w in zip(got, want):
+                np.testing.assert_allclose(np.asarray(g, np.float64), np.asarray(w, np.float64), rtol=tol, atol=tol)
+            if fuzzy:  # visible, hidden and ramped landmarks all occur
+                log_pd = got[1].numpy()
+                assert (log_pd < np.log(0.9) - 1).any() and (np.isclose(log_pd, np.log(0.9))).any()

@@ -6,12 +6,24 @@ the card's machine).
 Tolerances: at quality 85 the decoded frames' luminance is within a mean
 absolute error of 3 grey levels of the sensor-view frames', and their RGB
 error is no larger than that of the JAX package's PIL encoding of the same
-frames; the containers are read back frame for frame, byte for byte."""
+frames; the containers are read back frame for frame, byte for byte.
+
+The port's decoder (decode_frames / jpeg_decode: Huffman on the host, the
+rest on the device) against the JAX package's decode_frames (PIL, i.e.
+libjpeg) on the frames the JAX package's write_mjpeg encodes (4:2:0,
+quality 85), on the port encoder's (4:4:4), on grey frames, at odd sizes
+such as 30 x 41, and on PIL's 4:2:2 encodings and encodings with restart
+markers: the pixels are equal, because the port computes libjpeg's islow
+IDCT, fancy upsampling and colour tables in libjpeg's own integer
+arithmetic (a tighter test than the 2-level bound a float IDCT would
+need). The port encoder's frames decode to within the mean error of 3
+levels above of the frames they were encoded from."""
 
 import io
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from monorfs_tpu.io import avi as javi
@@ -111,3 +123,72 @@ def test_recording_sidebar_round_trip(tmp_path):
     rec.sidebar = b""
     rec.save(tmp_path / "plain.zip")
     assert Recording.load(tmp_path / "plain.zip").sidebar == b""
+
+
+def _test_images(seed=0, shape=(61, 83)):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:shape[0], 0:shape[1]]
+    smooth = np.stack([128 + 100 * np.sin(xx / 7), 128 + 100 * np.cos(yy / 5), (xx * yy) % 256], -1)
+    noisy = np.clip(smooth + rng.integers(-20, 20, smooth.shape), 0, 255).astype(np.uint8)
+    return [noisy, rng.integers(0, 256, shape + (3,), dtype=np.uint8)] + sidebar_frames(2, seed=seed)
+
+
+def _pil_jpeg(arr, **kw):
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, "JPEG", **kw)
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("kind", ["jax-420", "port-444", "grey", "odd-30x41", "pil-422", "restart",
+                                  "pil-444-q100", "tiny-5x3"])
+def test_decoder_matches_jax(kind):
+    """The port's decode_frames against the JAX package's (PIL) on the same
+    JPEG bytes: equal pixels."""
+    jpegs = []
+    for i, img in enumerate(_test_images(seed=len(kind))):
+        if kind == "jax-420":
+            jpegs.append(javi.jpeg_encode(img)[0])
+        elif kind == "port-444":
+            jpegs.append(avi.jpeg_encode(img)[0])
+        elif kind == "grey":
+            jpegs += [avi.jpeg_encode(img[..., i % 3])[0], _pil_jpeg(img[..., 0], quality=70)]
+        elif kind == "odd-30x41":
+            jpegs += [javi.jpeg_encode(img[:30, :41])[0], avi.jpeg_encode(img[:30, :41])[0]]
+        elif kind == "pil-422":
+            jpegs.append(_pil_jpeg(img, quality=85, subsampling=1))
+        elif kind == "restart":
+            jpegs.append(_pil_jpeg(img, quality=90, restart_marker_blocks=1 + i))
+        elif kind == "pil-444-q100":
+            jpegs.append(_pil_jpeg(img, quality=100, subsampling=0))
+        else:
+            jpegs.append(_pil_jpeg(img[:5, :3], quality=85))
+    got, want = avi.decode_frames(jpegs, device="cpu"), javi.decode_frames(jpegs)
+    for g, w in zip(got, want):
+        assert g.dtype == np.uint8 and g.shape == w.shape
+        np.testing.assert_array_equal(g, w)
+    if kind == "restart":
+        assert all(b"\xff\xdd" in j for j in jpegs)
+
+
+def test_decoder_reads_avi_files_of_both_packages(tmp_path):
+    frames = sidebar_frames(3, h=45, w=61)
+    javi.write_mjpeg(str(tmp_path / "j.avi"), frames, fps=5)
+    avi.write_mjpeg(str(tmp_path / "p.avi"), frames, fps=5)
+    for name in ("j.avi", "p.avi"):
+        got = avi.decode_frames(avi.read_mjpeg(str(tmp_path / name)), device="cpu")
+        want = javi.decode_frames(javi.read_mjpeg(str(tmp_path / name)))
+        assert len(got) == 3
+        for g, w, f in zip(got, want, frames):
+            np.testing.assert_array_equal(g, w)
+            if name == "p.avi":  # the port's 4:4:4 encoding keeps the red marks' chroma
+                assert np.abs(g.astype(float) - f).mean() < 3.0
+
+
+def test_decoder_refuses_other_jpeg():
+    img = _test_images()[0]
+    with pytest.raises(ValueError, match="progressive"):
+        avi.jpeg_decode(_pil_jpeg(img, progressive=True), device="cpu")
+    with pytest.raises(ValueError, match="not a JPEG"):
+        avi.jpeg_decode(b"\x89PNG\r\n", device="cpu")
+    tensor = avi.jpeg_decode(avi.jpeg_encode(img)[0], device="cpu")
+    assert tensor.dtype == torch.uint8 and tuple(tensor.shape) == img.shape

@@ -247,15 +247,17 @@ def test_chap4_s1_end_to_end(cpu_grid, tmp_path, capsys):
 
 
 def test_seed_spread_rule():
-    """seed_spread holds the port's 10 seeds of each row against the JAX
-    package's 10 (CPU seeds 0-2 and 3-9 from their two files) and closes a
-    row only when the Mann-Whitney p >= 0.05 and the port's median lies in
-    the JAX interquartile range; U counts the pairs the port's seed wins."""
+    """seed_spread holds the port's seeds of each row against the JAX
+    package's (20 of chap5-s2, 10 of the others; the JAX CPU seeds from
+    their two files) and closes a row only when the Mann-Whitney p >= 0.05
+    and the port's median lies in the JAX interquartile range; U counts the
+    pairs the port's seed wins."""
     from monorfs_tpu_torch.experiments import seed_spread as S
 
     rows = [S.compare(*r) for r in S.ROWS]
     for (exp, alg, metric, _), r in zip(S.ROWS, rows):
-        assert r["port_seeds"] == list(range(10)) and r["jax_seeds"] == list(range(10))
+        n = 20 if exp == "chap5-s2" else 10
+        assert r["port_seeds"] == list(range(n)) and r["jax_seeds"] == list(range(n))
         port = [s[alg][metric] for s in S.seeds(S.PORT / f"{exp}.seeds.json").values()]
         jax = [s[alg][metric] for s in S.seeds(S.JAX_CPU / f"{exp}.seeds.json",
                                                S.JAX_MORE / f"{exp}.seeds.json").values()]
@@ -263,4 +265,32 @@ def test_seed_spread_rule():
         assert r["port"]["median"] == pytest.approx(float(np.median(port)), abs=0)
         within = r["jax"]["q1"] <= r["port"]["median"] <= r["jax"]["q3"]
         assert r["closes"] == (r["p"] >= 0.05 and within)
-    assert [r["closes"] for r in rows] == [False, True, True, True, True, True]
+    assert [(r["experiment"], r["closes"]) for r in rows] == [
+        ("chap3-s4", False), ("chap5-s2", True), ("chap5-k3", True), ("chap5-k3", True), ("chap5-k4", True),
+        ("chap5-k4", True), ("chap5-k4", True)]
+
+
+def test_plot_series_draws_a_png(tmp_path, monkeypatch):
+    """plot_series draws two .data series through the port's rasterizer
+    into a PNG of the JAX figure's size (figsize 7 x 4 at dpi 120), with a
+    line in each of the first two colours of matplotlib's cycle; a missing
+    series is left out, as in the JAX function."""
+    from monorfs_tpu_torch.render import axes
+    from monorfs_tpu_torch.render.png import read_png
+
+    monkeypatch.setattr(T, "DEVICE", "cpu")
+    rng = np.random.default_rng(0)
+    recs = []
+    for i in range(2):
+        rec = tmp_path / f"r{i}.zip"
+        t = np.arange(50) / 30.0
+        np.savetxt(f"{rec}.loc.data", np.column_stack([t, np.abs(rng.normal(0.1 * (i + 1), 0.02, 50))]))
+        recs.append(str(rec))
+    out = tmp_path / "loc.png"
+    T.plot_series(recs + [str(tmp_path / "missing.zip")], ["phd", "odometry", "none"], "loc", str(out),
+                  "ATE location")
+    img = read_png(out)
+    assert img.shape == (T.PLOT_SIZE[1], T.PLOT_SIZE[0], 3)
+    for colour in axes.CYCLE[:2]:
+        rgb = np.array(axes.color_rgb(colour)) * 255
+        assert (np.abs(img.astype(float) - rgb).max(-1) < 2).sum() > 50, colour

@@ -72,16 +72,19 @@ ENTRY_POINTS = {
     "postanalysis": "import sys; from monorfs_tpu_torch.postanalysis import main; main(['-f', sys.argv[1]])",
     "bench_flagship": "from monorfs_tpu_torch.bench_flagship import main; main(['--particles', '8'])",
     "comm_volume": "from monorfs_tpu_torch.tools.comm_volume import main; main(['--ranks', '1'])",
+    "viewer": "import sys; from monorfs_tpu_torch.viewer import main; main(['-f', sys.argv[1]])",
+    "manipulator": "from monorfs_tpu_torch.manipulator import main; "
+                   "main(['-f', 'assets/sim3d.world', '-c', 'assets/mov3d.in'])",
 }
 
 
 @pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
 def test_entry_points_raise_without_gpu(entry, tmp_path):
-    """cli.main, Simulation, postanalysis, bench_flagship and comm_volume
-    default to the card: with no GPU visible and no device given they raise,
+    """cli.main, Simulation, postanalysis, bench_flagship, comm_volume,
+    viewer.main and manipulator.main default to the card: with no GPU visible and no device given they raise,
     and run nothing on the CPU."""
     record = tmp_path / "rec.zip"
-    if entry == "postanalysis":
+    if entry in ("postanalysis", "viewer"):
         from monorfs_tpu_torch.cli import main
 
         main(["-f", "assets/linear1d.world", "-c", "assets/mov1d.in", "-y", "--frames", "2",

@@ -539,3 +539,96 @@ class FollowJaxRansac:
                 cond = _dlt_conditioning(s[i[k]], d[i[k]])
                 assert cond < DLT_ILL_CONDITIONED, (k, i[k], counts[k], int(jcounts[k]), cond)
         return torch.tensor(theirs, device=src.device)
+
+
+# ---- viewers: draw lists and windows ------------------------------------------------
+
+class CallRecorder:
+    """A stand-in matplotlib axes that records every method call (name,
+    args, kwargs) and draws nothing: what a JAX viewer hands to ax.plot /
+    ax.scatter / ax.set_xlim, in order."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if name.startswith("__"):
+            raise AttributeError(name)
+        return lambda *args, **kw: self.calls.append((name, args, kw))
+
+    def draws(self):
+        return [c for c in self.calls if c[0] in ("plot", "scatter")]
+
+
+def assert_draw_lists_equal(jax_draws, port_calls, atol=1e-12):
+    """The JAX viewer's recorded plot / scatter calls against the port's
+    draw list (render.axes.Call), call by call: kind, data to atol, format
+    string and keyword arguments."""
+    assert len(jax_draws) == len(port_calls), (len(jax_draws), len(port_calls))
+    for i, ((kind, args, kw), call) in enumerate(zip(jax_draws, port_calls)):
+        fmt = args[-1] if args and isinstance(args[-1], str) else ""
+        data = args[:-1] if fmt else args
+        assert (kind, fmt, kw) == (call.kind, call.fmt, call.kw), (i, kind, fmt, kw, call)
+        assert len(data) == len(call.data), i
+        for a, b in zip(data, call.data):
+            np.testing.assert_allclose(np.asarray(b, np.float64), np.asarray(a, np.float64), rtol=0, atol=atol,
+                                       err_msg=f"call {i}")
+
+
+def asset_recording_3d(path, frames=10):
+    """A short CPU recording of the 3D asset world (the port's command line,
+    5 particles), for both packages' Recording.load."""
+    from monorfs_tpu_torch.cli import main
+
+    main(["-f", "assets/sim3d.world", "-c", "assets/mov3d.in", "-a", "phd", "-p", "5", "--frames",
+          str(frames), "--device", "cpu", "-r", str(path)])
+    return path
+
+
+KEY_SEQUENCE = ["right"] * 3 + ["left", " "] + ["left"] * 6 + ["right"] * 2 + [" ", "right", "x"]
+
+
+def drive_window(monkeypatch, fn, events=KEY_SEQUENCE, probe=None, where=None):
+    """Run a viewer's window function under Agg with plt.show replaced by a
+    function that sends `events` and reads probe(fig) after each (default:
+    the frame slider's value); returns (readings, what fn returned).
+
+    An event is a key (a key_press_event) or a tuple (kind, x, y, button),
+    kind 'press', 'move' or 'release' (button_press_event,
+    motion_notify_event, button_release_event), at the display point
+    where(fig, x, y) (default (x, y)). The canvas draws before the first
+    event and after each, as a window draws between two mouse events."""
+    import matplotlib
+    import matplotlib.pyplot as plt
+    import matplotlib.widgets as widgets
+    from matplotlib.backend_bases import KeyEvent, MouseEvent
+
+    monkeypatch.setattr(matplotlib, "use", lambda *a, **k: None)
+    sliders, readings = [], []
+    probe = probe or (lambda fig: int(sliders[-1].val))
+    names = {"press": "button_press_event", "move": "motion_notify_event", "release": "button_release_event"}
+
+    class Spy(widgets.Slider):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            sliders.append(self)
+
+    def show():
+        fig = plt.gcf()
+        fig.canvas.draw()
+        for ev in events:
+            if isinstance(ev, str):
+                fig.canvas.callbacks.process("key_press_event", KeyEvent("key_press_event", fig.canvas, ev))
+            else:
+                kind, x, y, button = ev
+                dx, dy = where(fig, x, y) if where else (x, y)
+                name = names[kind]
+                fig.canvas.callbacks.process(name, MouseEvent(name, fig.canvas, dx, dy, button=button))
+            fig.canvas.draw()
+            readings.append(probe(fig))
+        plt.close(fig)
+
+    monkeypatch.setattr(widgets, "Slider", Spy)
+    monkeypatch.setattr(plt, "show", show)
+    out = fn()
+    return readings, out
