@@ -7,7 +7,11 @@ Phases, one line each; any failure exits non-zero:
   1. device, `nvidia-smi` name and power limit, kernel build (nvcc, sm_90a);
   2. beam kernel vs its plain version, bit-identical: at the bench shape, on
      tie-heavy inputs, at B=64 C=8 n_words=3, at the default PHDConfig's
-     B=200 C=8 n_words=4, and at the command line's 48 steps of that shape;
+     B=200 C=8 n_words=4, tie-heavy at B=200 C=8 over 48 steps and at the
+     smoother's B=32 C=8 with one word; then the `beam-block` line: at each
+     shape the block design serves (BLOCK_SHAPES), the kernel's time, the
+     parent's under --parent, the plain scan's CUDA-graph replay and the
+     bound;
   3. fused kernel vs its plain version on warm random states at the bench
      shape, a cap-binds state, a merge-ties state and a second shape:
      predicted rtol/atol 2e-5, corrected component sets to the tolerances
@@ -298,6 +302,45 @@ def beam_check(name, inputs, b, n_words):
                                                          C=inputs[1].shape[2] - 1, B=b, n_words=n_words))
 
 
+# The block design's shapes (csrc/beam_scan.cu: B > 32 or C+1 > 8), each as
+# the path that runs it builds it: name, P, landmarks, M, C, B, timing reps.
+BLOCK_SHAPES = [
+    ("default-B200-C8-W4-M24", 200, 128, 24, 8, 200, 10),  # the default PHDConfig, 24 slots
+    ("cli-B200-C8-W4-M48", 200, 128, 48, 8, 200, 10),  # the command line's 48 slots
+    ("grid-P800-B200-C8-W4-M48", 800, 128, 48, 8, 200, 5),  # the grid at 800 particles
+    ("grid-P2000-B200-C8-W4-M48", 2000, 128, 48, 8, 200, 5),  # and at 2000
+    ("kinect-P2000-B200-C8-W4-M64", 2000, 128, 64, 8, 200, 5),  # k9
+    ("loopy-P1056-B32-C8-W1-M33", 1056, 32, 33, 8, 32, 10),  # the smoother's value-only seeds, 2D
+    ("loopy3d-P1536-B32-C8-W1-M48", 1536, 32, 48, 8, 32, 10),  # and 3D
+    ("B64-C8-W3-M24", 200, 96, 24, 8, 64, 10),
+]
+
+
+def beam_block(dev, parent):
+    """The `beam-block` line: at each block-design shape, this checkout's
+    kernel time (device, profiler events), the parent's in turns under
+    --parent, the plain scan's CUDA-graph replay and the bound. Each input
+    is held to the plain version bit for bit first. Returns the rows."""
+    rows = []
+    for i, (name, p, n, m, c, b, reps) in enumerate(BLOCK_SHAPES):
+        inputs, n_words = beam_random(dev, 41 + i, p, n, m, c)
+        beam_check(name, inputs, b, n_words)
+        ms, parent_ms = in_turns(
+            lambda: beam_kernel.beam_scan_batch(*inputs, b, n_words),
+            None if parent is None else (lambda: parent[0].beam_scan_batch(*inputs, b, n_words)),
+            reps, BEAM_KERNEL)
+        bms, by = beam_bound(inputs, b)
+        row = dict(case=name, shape=dict(P=p, M=m, C=c, B=b, n_words=n_words), max_abs_err=0.0,
+                   ms=float(np.mean(ms)), ms_runs=ms,
+                   parent_ms=None if parent_ms is None else float(np.mean(parent_ms)),
+                   parent_ms_runs=parent_ms,
+                   plain_ms=cuda_ms(lambda: beam_kernel.beam_scan_plain(*inputs, b, n_words), 2),
+                   bound_ms=bms, bound_by=by)
+        rows.append(row)
+    say("beam-block", shapes=rows)
+    return rows
+
+
 def beam_phase(dev, parent):
     p, n, m, c, b = 200, BENCH_CONFIG.estimate_cap, BENCH_CONFIG.beam_meas_cap, \
         BENCH_CONFIG.beam_candidates, BENCH_CONFIG.beam_width
@@ -311,6 +354,12 @@ def beam_phase(dev, parent):
     wide = beam_random(dev, 11, p, default.estimate_cap, m, default.beam_candidates)[0]
     wide_b, wide_w = default.beam_width, (default.estimate_cap + 31) // 32
     beam_check("default-B200-C8-W4", wide, wide_b, wide_w)
+    # tie-heavy options at the block design's shapes: the command line's
+    # B=200 C=8 over 48 steps, the smoother's B=32 C=8 with one word
+    beam_check("ties-B200-C8-W4-M48", [torch.as_tensor(x, device=dev) for x in beam_ties(13, p, 48, 8, 4)],
+               200, 4)
+    beam_check("ties-B32-C8-W1-M33", [torch.as_tensor(x, device=dev) for x in beam_ties(15, 1056, 33, 8, 1)],
+               32, 1)
 
     def run():
         return beam_kernel.beam_scan_batch(*inputs, b, n_words)
@@ -318,39 +367,16 @@ def beam_phase(dev, parent):
     parent_run = None if parent is None else (lambda: parent[0].beam_scan_batch(*inputs, b, n_words))
     ms, parent_ms = in_turns(run, parent_run, 50, BEAM_KERNEL)
     w_ms = wall_ms(run, 50)
-    # the default PHDConfig's shape runs the block-per-particle design
-    wide_ms, wide_parent_ms = in_turns(
-        lambda: beam_kernel.beam_scan_batch(*wide, wide_b, wide_w),
-        None if parent is None else (lambda: parent[0].beam_scan_batch(*wide, wide_b, wide_w)),
-        10, BEAM_KERNEL)
     plain_ms = cuda_ms(lambda: beam_kernel.beam_scan_plain(*inputs, b, n_words), 5)
     bms, by = beam_bound(inputs, b)
-    wide_bms, wide_by = beam_bound(wide, wide_b)
-    wide_shape = dict(case="default-B200-C8-W4-M24", shape=dict(P=p, M=m, C=default.beam_candidates,
-                                                                B=wide_b, n_words=wide_w),
-                      max_abs_err=0.0, ms=float(np.mean(wide_ms)),
-                      plain_ms=cuda_ms(lambda: beam_kernel.beam_scan_plain(*wide, wide_b, wide_w), 2),
-                      bound_ms=wide_bms, bound_by=wide_by)
-    say("beam-shape", **wide_shape)
-    # the command line's shape: the default PHDConfig over all 48 measurement
-    # slots of the 3D world (no beam_meas_cap)
-    cli_in = beam_random(dev, 13, p, default.estimate_cap, 48, default.beam_candidates)[0]
-    beam_check("cli-B200-C8-W4-M48", cli_in, wide_b, wide_w)
-    cli_bms, cli_by = beam_bound(cli_in, wide_b)
-    cli_shape = dict(case="cli-B200-C8-W4-M48", shape=dict(P=p, M=48, C=default.beam_candidates,
-                                                            B=wide_b, n_words=wide_w),
-                     max_abs_err=0.0,
-                     ms=kernel_ms(lambda: beam_kernel.beam_scan_batch(*cli_in, wide_b, wide_w), 10, BEAM_KERNEL),
-                     plain_ms=cuda_ms(lambda: beam_kernel.beam_scan_plain(*cli_in, wide_b, wide_w), 2),
-                     bound_ms=cli_bms, bound_by=cli_by)
-    say("beam-shape", **cli_shape)
+    block = beam_block(dev, parent)
     say("beam", ms=ms, parent_ms=parent_ms, wrapper_ms=w_ms, plain_ms=plain_ms,
         shape=dict(P=p, M=m, C=c, B=b, n_words=n_words),
-        default_shape_ms=wide_ms, default_shape_parent_ms=wide_parent_ms)
+        default_shape_ms=block[0]["ms_runs"], default_shape_parent_ms=block[0]["parent_ms_runs"])
     row = dict(name="beam_scan", route="cuda", source="monorfs_tpu_torch/csrc/beam_scan.cu",
                replaces="monorfs_tpu/slam/beam_pallas.py:178", max_abs_err=0.0, ms=float(np.mean(ms)),
                wrapper_ms=w_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
-               shapes=[wide_shape, cli_shape])
+               shapes=[{k: v for k, v in r.items() if not k.endswith("_runs")} for r in block[:2]])
     if parent_ms is not None:
         row["parent_ms"] = float(np.mean(parent_ms))
     return row

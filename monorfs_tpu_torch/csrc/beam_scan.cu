@@ -12,16 +12,18 @@
 // plain version adds them, so the result is bit-identical to it.
 //
 // Bound on the H100: neither bytes (~0.4 MB in, 26 KB out at the bench
-// shape) nor operations (~4 M): a latency-bound chain of M dependent steps
-// per particle. What counts is the length of one step's dependent chain;
-// spreading particles over more SMs or more warps per SM does not shorten it.
+// shape; 12.8 MB in at k9's P=2000 M=64) nor operations (~4 M at the bench
+// shape): each particle is a chain of M dependent steps, a step needing the
+// previous step's B rows, so a launch takes at least M times the latency of
+// one step, however wide the card. Both designs shorten that chain and keep
+// many particles resident on each SM, so that their chains overlap.
 //
-// Design for B <= 32, C+1 <= 8 and NW <= 4 (the bench shape: B = 32, C = 6,
-// NW = 2): one warp per particle, several particles per block, no block
-// barrier. The particle's options (1.8 KB) are staged into shared memory
-// once, so no step touches device memory; a step's options are then read
-// once into registers, the same for every lane. Lane b holds beam row b:
-// its score and its used-set words in registers. It forms the row's C+1
+// Warp design for B <= 32, C+1 <= 8 and NW <= 4 (the bench shape: B = 32,
+// C = 6, NW = 2): one warp per particle, several particles per block, no
+// block barrier. The particle's options (1.8 KB) are staged into shared
+// memory once, so no step touches device memory; a step's options are then
+// read once into registers, the same for every lane. Lane b holds beam row
+// b: its score and its used-set words in registers. It forms the row's C+1
 // candidates and sorts them (value desc, option asc) as 64-bit keys (an
 // order-preserving map of the value above 7 - c) with Batcher's
 // 19-comparator network. The warp then takes the best B in order in B
@@ -31,19 +33,35 @@
 // keeps the lower option first, so ties follow the flat index b (C+1) + c as
 // lax.top_k does. A round moves only keys; afterwards lane r finds the
 // winner of round r's option from the winner's won-rounds mask, and its
-// score and words by shuffle. Selection work per step is about
-// NC + 32 B lane operations; the chain is B rounds of about eight dependent
-// instructions, REDUX latency first: ~5 k cycles a step measured at the
-// bench shape, against ~11.5 k for the 224-wide rank count it replaces.
+// score and words by shuffle. The chain is B rounds of about eight
+// dependent instructions, REDUX latency first.
 //
-// Design for every other shape (the default PHDConfig's B = 200, C = 8): one
-// block per particle. Candidates are not stored: a candidate's value is
-// recomputed from its row's score and words and the step's options where
-// it is compared. The block sorts the candidate indices (value desc, index
-// asc) with a bitonic network in which every comparator orders the same
-// way, so the padding to a power of two holds minima that never move and is
-// never touched; the first B indices are the new beam. Shared memory is
-// B scores, B(C+1) indices and 2 B NW words.
+// Block design for every other shape (the default PHDConfig's B = 200,
+// C = 8, NW = 4: the command line, the grids, k9; and the smoother's B = 32,
+// C = 8, NW = 1): one block of at most 256 threads per particle, thread t
+// owning the K candidates of flat indices [t K, t K + K), K the fewest of
+// 2, 4, ..., 32 that fit. The options are staged into shared memory once,
+// as in the warp design. A step:
+//   1. each thread forms its candidates' order keys once, in registers;
+//   2. a radix select finds the B-th largest key: per 8-bit digit from the
+//      top, a shared histogram (integer atomics, so the counts do not depend
+//      on their order) of the keys that match the digits fixed so far, then
+//      warp 0 scans it for the bin that holds the B-th; a pass whose bin is
+//      taken whole ends the search;
+//   3. a block scan of (above, at) counts places the keys above the found
+//      prefix and, of those at it, the ones with the lowest flat index (the
+//      (value, ~flat) 64-bit key is unique and orders as lax.top_k does)
+//      into B slots;
+//   4. each kept key's rank among the B, by counting, is its new row: the
+//      source row's score and words with the picked option added.
+// At most 11 block barriers a step, against the 66 of the bitonic sort of
+// all B(C+1) candidates that this design replaces, which ran one 1024-thread
+// block an SM. __launch_bounds__(256, 8) caps a thread at 32 registers
+// (ptxas -v: 32 at every K, with 56 bytes of stack at K = 8), so an SM holds
+// 8 particles' 256-thread blocks: the grid's P=800 runs in one wave and
+// P=2000 in two. At the smoother's B = 32, C = 8 (K = 2, 160 threads) this
+// design also beat the warp design widened to 16 option slots
+// (chip_smoke.py's beam-block line, PERF.md), which was therefore not kept.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,6 +75,9 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr size_t SMEM_MAX = 232448;  // shared memory one H100 block may use
 constexpr int WARP_PARTICLES = 4;    // particles (warps) per block of the warp design
 constexpr int NWMAX = 4;             // used-set words a lane keeps in registers there
+constexpr int BLOCK_THREADS = 256;   // threads of one particle's block, at most
+constexpr int BLOCK_RESIDENT = 8;    // blocks an SM must hold at once (caps registers at 32)
+constexpr int RADIX = 256;           // bins of one radix-select pass (8 bits)
 
 // value of option c of a row whose words are rw: clutter, the landmark's
 // delta, or NEG when the landmark is already in the row's used set
@@ -220,69 +241,200 @@ beam_scan_warp_kernel(const float* __restrict__ base, const float* __restrict__ 
   if (row) out[(size_t)p * B + lane] = s;
 }
 
-__global__ void beam_scan_block_kernel(const float* __restrict__ base, const float* __restrict__ od,
-                                       const int* __restrict__ wk, const int* __restrict__ bk,
-                                       float* __restrict__ out, int M, int C, int B, int NW) {
-  extern __shared__ uint32_t smem[];
-  const int C1 = C + 1;
-  const int NC = B * C1;
-  float* scores = reinterpret_cast<float*>(smem);      // [B]
-  int* idx = reinterpret_cast<int*>(scores + B);        // [NC]
-  uint32_t* words = reinterpret_cast<uint32_t*>(idx + NC);  // [B * NW]
-  uint32_t* nwords = words + B * NW;                    // [B * NW]
+// 4-byte word offsets of the block design's shared memory
+struct BlockLayout {
+  size_t sel, od, wk, bk, scores, words, hist, wsum, state, total;
+};
 
+__host__ __device__ inline BlockLayout block_layout(int M, int C, int B, int NW) {
+  BlockLayout l;
+  l.sel = 0;                                       // u64 [B + 1]: the step's kept keys, 0-padded
+  l.od = l.sel + 2 * ((size_t)B + 1);              // f32 [M, C+1]: the staged options
+  l.wk = l.od + (size_t)M * (C + 1);               // int [M, C]
+  l.bk = l.wk + (size_t)M * C;                     // u32 [M, C]
+  l.scores = l.bk + (size_t)M * C;                 // f32 [2, B]: this step's beam and the next
+  l.words = l.scores + 2 * (size_t)B;              // u32 [2, B, NW]
+  l.hist = (l.words + 2 * (size_t)B * NW + 3) & ~(size_t)3;  // int [256], 16-byte aligned
+  l.wsum = l.hist + RADIX;                         // u32 [32]: per-warp totals of the scan
+  l.state = l.wsum + 32;                           // int [3]: prefix, need, done
+  l.total = l.state + 4;
+  return l;
+}
+
+// One block of at most BLOCK_THREADS threads per particle; thread t owns the
+// K candidates of flat indices [t K, t K + K).
+template <int K>
+__global__ void __launch_bounds__(BLOCK_THREADS, BLOCK_RESIDENT)
+beam_scan_block_kernel(const float* __restrict__ base, const float* __restrict__ od,
+                       const int* __restrict__ wk, const int* __restrict__ bk,
+                       float* __restrict__ out, int M, int C, int B, int NW) {
+  extern __shared__ __align__(16) uint32_t bsm[];
+  const BlockLayout L = block_layout(M, C, B, NW);
+  u64* sel = reinterpret_cast<u64*>(bsm + L.sel);
+  float* sod = reinterpret_cast<float*>(bsm + L.od);
+  int* swk = reinterpret_cast<int*>(bsm + L.wk);
+  uint32_t* sbk = bsm + L.bk;
+  float* scores = reinterpret_cast<float*>(bsm + L.scores);
+  uint32_t* words = bsm + L.words;
+  int* hist = reinterpret_cast<int*>(bsm + L.hist);
+  uint32_t* wsum = bsm + L.wsum;
+  int* state = reinterpret_cast<int*>(bsm + L.state);
+
+  const int C1 = C + 1, NC = B * C1;
   const int p = blockIdx.x, t = threadIdx.x, T = blockDim.x;
-  for (int i = t; i < B; i += T) scores[i] = (i == 0) ? base[p] : NEG;
+  const int lane = t & 31, warp = t >> 5;
+
+  // stage the particle's options; the first beam is row 0 = base, the rest empty
+  const float* odp = od + (size_t)p * M * C1;
+  const int* wkp = wk + (size_t)p * M * C;
+  const uint32_t* bkp = reinterpret_cast<const uint32_t*>(bk) + (size_t)p * M * C;
+  for (int i = t; i < M * C1; i += T) sod[i] = odp[i];
+  for (int i = t; i < M * C; i += T) {
+    swk[i] = wkp[i];
+    sbk[i] = bkp[i];
+  }
+  for (int i = t; i < B; i += T) scores[i] = i == 0 ? base[p] : NEG;
   for (int i = t; i < B * NW; i += T) words[i] = 0u;
-  int npad = 1;
-  while (npad < NC) npad <<= 1;
+  for (int i = t; i < RADIX; i += T) hist[i] = 0;
+  if (t == 0) sel[B] = 0ull;
+  __syncthreads();
 
+  const int f0 = t * K;
+  const int b0 = f0 / C1, c0 = f0 - b0 * C1;
+  int cur = 0;
   for (int m = 0; m < M; ++m) {
-    const float* dk = od + ((size_t)p * M + m) * C1;
-    const int* wkm = wk + ((size_t)p * M + m) * C;
-    const uint32_t* bkm = reinterpret_cast<const uint32_t*>(bk) + ((size_t)p * M + m) * C;
-    auto value = [&](int f) {
-      const int b = f / C1;
-      return scores[b] + option_delta(dk, wkm, bkm, words + b * NW, f - b * C1, NW);
-    };
-    for (int i = t; i < NC; i += T) idx[i] = i;
-    __syncthreads();
+    const float* dk = sod + m * C1;
+    const int* wkm = swk + m * C;
+    const uint32_t* bkm = sbk + m * C;
+    const float* s = scores + cur * B;
+    const uint32_t* rw = words + (size_t)cur * B * NW;
 
-    // bitonic sort, every comparator (i < l) puts the better index at i;
-    // positions >= NC are virtual minima and never move
-    for (int k = 2; k <= npad; k <<= 1) {
-      for (int j = k >> 1; j > 0; j >>= 1) {
-        for (int q = t; q < npad / 2; q += T) {
-          const int i = (q / j) * 2 * j + (q % j);
-          const int l = (j == k >> 1) ? (i ^ (k - 1)) : (i + j);
-          if (l >= NC) continue;
-          const int a = idx[i], b = idx[l];
-          const float va = value(a), vb = value(b);
-          if (vb > va || (vb == va && b < a)) {
-            idx[i] = b;
-            idx[l] = a;
-          }
+    // each candidate's order key, once
+    uint32_t hi[K];
+    {
+      int b = b0, c = c0;
+#pragma unroll
+      for (int i = 0; i < K; ++i) {
+        hi[i] = f0 + i < NC ? order_key(s[b] + option_delta(dk, wkm, bkm, rw + b * NW, c, NW)) : 0u;
+        if (++c == C1) {
+          c = 0;
+          ++b;
         }
-        __syncthreads();
       }
     }
 
-    // the first B indices: new scores (parked in idx) and words
-    for (int r = t; r < B; r += T) {
-      const int f = idx[r];
-      const int src = f / C1;
-      const float v = value(f);
-      next_words(wkm, bkm, words + src * NW, nwords + r * NW, f - src * C1, NW);
-      idx[r] = __float_as_int(v);
+    // radix select of the B-th largest order key, 8 bits a pass from the
+    // top: a histogram of the digit among the keys that match the digits
+    // fixed so far (bin 255 - digit, so the bins run from the largest), then
+    // warp 0 finds the bin that holds the B-th key and clears what it read
+    uint32_t prefix = 0u, mask = 0u;
+    int need = B;  // keys still to take from those that match prefix
+    for (int sh = 24; sh >= 0; sh -= 8) {
+#pragma unroll
+      for (int i = 0; i < K; ++i) {
+        const bool in = f0 + i < NC && ((hi[i] ^ prefix) & mask) == 0u;
+        if (in) atomicAdd(&hist[255u - ((hi[i] >> sh) & 255u)], 1);
+      }
+      __syncthreads();
+      if (warp == 0) {
+        const int4 lo4 = reinterpret_cast<const int4*>(hist)[2 * lane];
+        const int4 hi4 = reinterpret_cast<const int4*>(hist)[2 * lane + 1];
+        const int cnt[8] = {lo4.x, lo4.y, lo4.z, lo4.w, hi4.x, hi4.y, hi4.z, hi4.w};
+        reinterpret_cast<int4*>(hist)[2 * lane] = make_int4(0, 0, 0, 0);
+        reinterpret_cast<int4*>(hist)[2 * lane + 1] = make_int4(0, 0, 0, 0);
+        int sum = 0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) sum += cnt[j];
+        int incl = sum;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int x = __shfl_up_sync(FULL, incl, o);
+          incl += lane >= o ? x : 0;
+        }
+        if (lane == __ffs(__ballot_sync(FULL, incl >= need)) - 1) {
+          int above = incl - sum, bin = 0, h = 0;
+          bool found = false;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const bool here = !found && above + cnt[j] >= need;
+            bin = here ? 8 * lane + j : bin;
+            h = here ? cnt[j] : h;
+            above += found || here ? 0 : cnt[j];
+            found = found || here;
+          }
+          state[0] = (int)(prefix | ((255u - (uint32_t)bin) << sh));
+          state[1] = need - above;
+          state[2] = h == need - above;  // the bin is taken whole: no later pass needed
+        }
+      }
+      __syncthreads();
+      prefix = (uint32_t)state[0];
+      need = state[1];
+      mask |= 255u << sh;
+      if (state[2]) break;
+    }
+
+    // keep every key above prefix, and of the keys at prefix the `need`
+    // with the lowest flat index: a block scan of (above, at) counts gives
+    // each thread its first slot in sel
+    int gt = 0, eq = 0;
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      const uint32_t h = hi[i] & mask;
+      gt += f0 + i < NC && h > prefix;
+      eq += f0 + i < NC && h == prefix;
+    }
+    const uint32_t packed = ((uint32_t)gt << 16) | (uint32_t)eq;
+    uint32_t incl = packed;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const uint32_t x = __shfl_up_sync(FULL, incl, o);
+      incl += lane >= o ? x : 0u;
+    }
+    if (lane == 31) wsum[warp] = incl;
+    __syncthreads();
+    uint32_t excl = incl - packed;
+    for (int w = 0; w < warp; ++w) excl += wsum[w];
+    int at = (int)(excl & 0xffffu);
+    int pos = (int)(excl >> 16) + (at < need ? at : need);
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      const uint32_t h = hi[i] & mask;
+      const bool take = f0 + i < NC && (h > prefix || (h == prefix && at < need));
+      at += f0 + i < NC && h == prefix;
+      if (take) sel[pos++] = ((u64)hi[i] << 32) | (uint32_t)~(uint32_t)(f0 + i);
     }
     __syncthreads();
-    for (int r = t; r < B; r += T) scores[r] = __int_as_float(idx[r]);
-    uint32_t* tmp = words;
-    words = nwords;
-    nwords = tmp;
+
+    // each kept key's rank among the B is its new row: the source row's
+    // score and words with the picked option added
+    float* ns = scores + (cur ^ 1) * B;
+    uint32_t* nw = words + (size_t)(cur ^ 1) * B * NW;
+    const ulonglong2* sel2 = reinterpret_cast<const ulonglong2*>(sel);
+    for (int r = t; r < B; r += T) {
+      const u64 k = sel[r];
+      int rank = 0;
+      for (int j = 0; j < (B + 1) / 2; ++j) {
+        const ulonglong2 q = sel2[j];
+        rank += (q.x > k) + (q.y > k);
+      }
+      const int f = (int)~(uint32_t)k;
+      const int b = f / C1, c = f - b * C1;
+      ns[rank] = s[b] + option_delta(dk, wkm, bkm, rw + b * NW, c, NW);
+      next_words(wkm, bkm, rw + b * NW, nw + rank * NW, c, NW);
+    }
     __syncthreads();
+    cur ^= 1;
   }
-  for (int i = t; i < B; i += T) out[(size_t)p * B + i] = scores[i];
+  for (int i = t; i < B; i += T) out[(size_t)p * B + i] = scores[cur * B + i];
+}
+
+// candidates a thread of the block design owns: the fewest that fit NC
+// candidates into BLOCK_THREADS threads (0: the shape is too large)
+int block_k(int NC) {
+  for (int k = 2; k <= 32; k <<= 1)
+    if ((NC + k - 1) / k <= BLOCK_THREADS) return k;
+  return 0;
 }
 
 bool use_warp(int M, int C, int B, int NW) {
@@ -294,17 +446,31 @@ int warps_per_block(int M, int C) {
   return fit < (size_t)WARP_PARTICLES ? (int)fit : WARP_PARTICLES;
 }
 
+// 0: no design takes the shape
 size_t smem_bytes(int M, int C, int B, int NW) {
   if (use_warp(M, C, B, NW)) return 4 * warp_words(M, C) * warps_per_block(M, C);
-  return 4 * ((size_t)B + (size_t)B * (C + 1) + 2 * (size_t)B * NW);
+  if (block_k(B * (C + 1)) == 0) return 0;
+  const size_t bytes = 4 * block_layout(M, C, B, NW).total;
+  return bytes <= SMEM_MAX ? bytes : 0;
 }
 
 std::atomic<size_t> smem_set_w[kMaxDevices], smem_set_b[kMaxDevices];
 
+template <int K>
+cudaError_t launch_block(const float* base, const float* od, const int* wk, const int* bk,
+                         float* out, int P, int M, int C, int B, int NW, size_t smem,
+                         cudaStream_t stream) {
+  cudaError_t err = allow_smem((const void*)beam_scan_block_kernel<K>, smem_set_b, smem);
+  if (err != cudaSuccess) return err;
+  const int threads = (((B * (C + 1) + K - 1) / K + 31) / 32) * 32;
+  beam_scan_block_kernel<K><<<P, threads, smem, stream>>>(base, od, wk, bk, out, M, C, B, NW);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Shared memory one block asks for at this shape (the design the launch
-// picks).
+// picks); 0 when neither design takes it.
 extern "C" size_t beam_scan_smem_bytes(int M, int C, int B, int NW) {
   return smem_bytes(M, C, B, NW);
 }
@@ -316,22 +482,21 @@ extern "C" int beam_scan_launch(const float* base, const float* od,
                                 void* stream) {
   if (P == 0) return 0;
   const size_t smem = smem_bytes(M, C, B, NW);
-  cudaError_t err;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (smem == 0) return (int)cudaErrorInvalidValue;
   if (use_warp(M, C, B, NW)) {
     const int warps = warps_per_block(M, C);
-    err = allow_smem((const void*)beam_scan_warp_kernel, smem_set_w, smem);
+    const cudaError_t err = allow_smem((const void*)beam_scan_warp_kernel, smem_set_w, smem);
     if (err != cudaSuccess) return (int)err;
-    beam_scan_warp_kernel<<<(P + warps - 1) / warps, 32 * warps, smem, (cudaStream_t)stream>>>(
+    beam_scan_warp_kernel<<<(P + warps - 1) / warps, 32 * warps, smem, st>>>(
         base, od, wk, bk, out, P, M, C, B, NW);
-  } else {
-    err = allow_smem((const void*)beam_scan_block_kernel, smem_set_b, smem);
-    if (err != cudaSuccess) return (int)err;
-    int npad = 1;
-    while (npad < B * (C + 1)) npad <<= 1;
-    int threads = ((npad / 2 + 31) / 32) * 32;
-    threads = threads < 32 ? 32 : (threads > 1024 ? 1024 : threads);
-    beam_scan_block_kernel<<<P, threads, smem, (cudaStream_t)stream>>>(
-        base, od, wk, bk, out, M, C, B, NW);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  switch (block_k(B * (C + 1))) {
+    case 2: return (int)launch_block<2>(base, od, wk, bk, out, P, M, C, B, NW, smem, st);
+    case 4: return (int)launch_block<4>(base, od, wk, bk, out, P, M, C, B, NW, smem, st);
+    case 8: return (int)launch_block<8>(base, od, wk, bk, out, P, M, C, B, NW, smem, st);
+    case 16: return (int)launch_block<16>(base, od, wk, bk, out, P, M, C, B, NW, smem, st);
+    default: return (int)launch_block<32>(base, od, wk, bk, out, P, M, C, B, NW, smem, st);
+  }
 }

@@ -9,10 +9,10 @@ JAX package's seeds of the same experiment on its CPU (seeds 0-2 of the
 chap5 rows in experiments/out/<exp>.seeds.json, the others in
 experiments/out-jax-cpu/<exp>.seeds.json, written by
 experiments/run_experiments.py --seeds; chap3-s4's seed 0 there is the
-20-particle row of experiments/out/chap3-s4.stats.json and seeds 1-9 ran
-the 20-particle leg alone, chap3_s4(outdir, sweep=(20,)) with SEED set).
-chap5-s2 has seeds 0-19 of both packages, the other rows 0-9. For each
-row below, on the metric
+20-particle row of experiments/out/chap3-s4.stats.json and seeds 1-19 ran
+the 20-particle leg alone, chap3_s4(outdir, sweep=(20,)) with SEED set, as
+the port's seeds 10-19 did). chap3-s4 and chap5-s2 have seeds 0-19 of both
+packages, the other rows 0-9. For each row below, on the metric
 the row missed at seed 0, it prints both samples' mean, median, min-max,
 quartiles and the seeds under the row's limits (summarize.held, the rule
 every grid row is held to), a two-sided Mann-Whitney U test, and the

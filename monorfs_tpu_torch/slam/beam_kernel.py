@@ -24,7 +24,8 @@ def _launcher():
 
 @functools.cache
 def smem_bytes(m, c, beam_width, n_words):
-    """Shared memory one block of the kernel asks for at this shape."""
+    """Shared memory one block of the kernel asks for at this shape; 0 when
+    no design of the kernel takes it."""
     fn = _build.function("beam_scan_smem_bytes", [ctypes.c_int] * 4, ctypes.c_size_t)
     return fn(m, c, beam_width, n_words)
 
@@ -53,8 +54,8 @@ def beam_scan_batch(base, opt_delta, word_k, bit_k, beam_width, n_words):
             raise ValueError(f"{name} must be contiguous")
     if beam_width < 1 or n_words < 1:
         raise ValueError("beam_width and n_words must be positive")
-    if smem_bytes(m, c, beam_width, n_words) > _build.SMEM_LIMIT:
-        raise ValueError("beam shape needs more shared memory than a block has")
+    if not 0 < smem_bytes(m, c, beam_width, n_words) <= _build.SMEM_LIMIT:
+        raise ValueError(f"the beam kernel takes no B={beam_width} C={c} M={m} n_words={n_words}")
     out = torch.empty((p, beam_width), dtype=torch.float32, device=opt_delta.device)
     with torch.cuda.device(opt_delta.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -1,6 +1,9 @@
 """The port's prepare_options and plain beam against monorfs_tpu's
 association.beam_scan and beam_pallas.beam_scan_batch(interpret=True):
-exactly equal, float32, on random gated instances."""
+exactly equal, float32, on random gated instances. The cases at B=200 C=8
+(4 words, 48 steps: the default PHDConfig, which the CUDA kernel's block
+design serves) hold the plain beam to the JAX scan alone: the JAX package
+never runs its Pallas beam above B=64 (beam_pallas.recommended)."""
 
 import numpy as np
 import pytest
@@ -34,7 +37,8 @@ def _jax_prepare(ll, log_miss, n_mask, m_mask, log_clutter, c):
 
 
 @pytest.mark.parametrize(
-    "seed,p,n,m,c,b", [(3, 9, 48, 17, 6, 32), (5, 4, 40, 24, 6, 32), (7, 3, 96, 12, 8, 64)]
+    "seed,p,n,m,c,b", [(3, 9, 48, 17, 6, 32), (5, 4, 40, 24, 6, 32), (7, 3, 96, 12, 8, 64),
+                       (11, 4, 128, 48, 8, 200), (13, 5, 32, 33, 8, 32)]
 )
 def test_prepare_options_and_beam_exact(seed, p, n, m, c, b):
     ll, log_miss, n_mask, m_mask, log_clutter = _instances(seed, p, n, m)
@@ -54,16 +58,18 @@ def test_prepare_options_and_beam_exact(seed, p, n, m, c, b):
     ref_scan = jax.vmap(
         lambda b_, o, w, k: jassoc.beam_scan(b_, o, w, k, b, n_words)
     )(jbase, jod, jwk, jbk)
-    ref_pallas = beam_pallas.beam_scan_batch(jbase, jod, jwk, jbk, b, n_words, interpret=True)
     # the same option tensors into both beams: bit-identical scores
     out = beam_kernel.beam_scan_batch(
         torch.from_numpy(np.array(jbase)), od, wk, bk, b, n_words
     )
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref_scan))
-    np.testing.assert_array_equal(out.numpy(), np.asarray(ref_pallas))
+    if beam_pallas.recommended(b):
+        ref_pallas = beam_pallas.beam_scan_batch(jbase, jod, jwk, jbk, b, n_words, interpret=True)
+        np.testing.assert_array_equal(out.numpy(), np.asarray(ref_pallas))
 
 
-@pytest.mark.parametrize("seed,p,m,c,n_words,b", [(5, 6, 24, 6, 2, 32), (9, 3, 12, 8, 3, 64)])
+@pytest.mark.parametrize("seed,p,m,c,n_words,b", [(5, 6, 24, 6, 2, 32), (9, 3, 12, 8, 3, 64),
+                                                  (15, 4, 48, 8, 4, 200), (17, 5, 33, 8, 1, 32)])
 def test_beam_ties_exact(seed, p, m, c, n_words, b):
     """Tie-heavy options (kernel_cases.beam_ties, the inputs chip_smoke.py
     holds the CUDA kernel to): hundreds of exactly equal candidates a step,
@@ -73,9 +79,10 @@ def test_beam_ties_exact(seed, p, m, c, n_words, b):
     out = beam_kernel.beam_scan_batch(*[torch.from_numpy(x) for x in (base, od, wk, bk)], b, n_words)
     jargs = (jnp.asarray(base), jnp.asarray(od), jnp.asarray(wk), jnp.asarray(bk.view(np.uint32)))
     ref_scan = jax.vmap(lambda b_, o, w, k: jassoc.beam_scan(b_, o, w, k, b, n_words))(*jargs)
-    ref_pallas = beam_pallas.beam_scan_batch(*jargs, b, n_words, interpret=True)
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref_scan))
-    np.testing.assert_array_equal(out.numpy(), np.asarray(ref_pallas))
+    if beam_pallas.recommended(b):
+        ref_pallas = beam_pallas.beam_scan_batch(*jargs, b, n_words, interpret=True)
+        np.testing.assert_array_equal(out.numpy(), np.asarray(ref_pallas))
     # the case is what it claims: whole runs of equal scores survive
     assert (np.diff(out.numpy(), axis=1) == 0).sum() > p * b // 4
 

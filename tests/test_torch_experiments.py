@@ -248,7 +248,7 @@ def test_chap4_s1_end_to_end(cpu_grid, tmp_path, capsys):
 
 def test_seed_spread_rule():
     """seed_spread holds the port's seeds of each row against the JAX
-    package's (20 of chap5-s2, 10 of the others; the JAX CPU seeds from
+    package's (20 of chap3-s4 and chap5-s2, 10 of the others; the JAX CPU seeds from
     their two files) and closes a row only when the Mann-Whitney p >= 0.05
     and the port's median lies in the JAX interquartile range; U counts the
     pairs the port's seed wins."""
@@ -256,7 +256,7 @@ def test_seed_spread_rule():
 
     rows = [S.compare(*r) for r in S.ROWS]
     for (exp, alg, metric, _), r in zip(S.ROWS, rows):
-        n = 20 if exp == "chap5-s2" else 10
+        n = 20 if exp in ("chap3-s4", "chap5-s2") else 10
         assert r["port_seeds"] == list(range(n)) and r["jax_seeds"] == list(range(n))
         port = [s[alg][metric] for s in S.seeds(S.PORT / f"{exp}.seeds.json").values()]
         jax = [s[alg][metric] for s in S.seeds(S.JAX_CPU / f"{exp}.seeds.json",
@@ -266,7 +266,7 @@ def test_seed_spread_rule():
         within = r["jax"]["q1"] <= r["port"]["median"] <= r["jax"]["q3"]
         assert r["closes"] == (r["p"] >= 0.05 and within)
     assert [(r["experiment"], r["closes"]) for r in rows] == [
-        ("chap3-s4", False), ("chap5-s2", True), ("chap5-k3", True), ("chap5-k3", True), ("chap5-k4", True),
+        ("chap3-s4", True), ("chap5-s2", True), ("chap5-k3", True), ("chap5-k3", True), ("chap5-k4", True),
         ("chap5-k4", True), ("chap5-k4", True)]
 
 
