@@ -5,21 +5,31 @@
 
 Phases, one line each; any failure exits non-zero:
   1. device, `nvidia-smi` name and power limit, kernel build (nvcc, sm_90a);
+     the Python copies of csrc/'s shape decisions (fused_kernel.layout_bytes
+     and workspace_floats, beam_kernel.layout_bytes) against the built C
+     functions over a grid of shapes (`layout-check`);
   2. beam kernel vs its plain version, bit-identical: at the bench shape, on
      tie-heavy inputs, at B=64 C=8 n_words=3, at the default PHDConfig's
      B=200 C=8 n_words=4, tie-heavy at B=200 C=8 over 48 steps and at the
      smoother's B=32 C=8 with one word; then the `beam-block` line: at each
      shape the block design serves (BLOCK_SHAPES), the kernel's time, the
      parent's under --parent, the plain scan's CUDA-graph replay and the
-     bound;
+     bound; then `beam-wide`: at B=1000 C=8 (past the 256-thread block's
+     8,192 candidates: the 1024-thread block) the kernel bit-identical to
+     the plain scan on random and tie-heavy options and timed, the wrapper
+     raising at the first shapes no design takes, and 5 float32 SLAM steps
+     at that width (8 particles) with both kernels once a frame;
   3. fused kernel vs its plain version on warm random states at the bench
      shape, a cap-binds state, a merge-ties state and a second shape:
      predicted rtol/atol 2e-5, corrected component sets to the tolerances
      of tests/test_fused_pallas.py; its per-phase clock split; then, to the
-     same tolerances and each with its device time, Linear2D and Linear1D
-     states at the bench shape and the command line's capacity (K0=600, the
-     pair table in device memory): PRM3D M=48 with the cap loose and
-     binding, Linear2D M=33, Linear1D M=20;
+     same tolerances and each with its device time (in turns with the
+     parent where the parent launches the shape), plain time, bound and
+     phase split (the parent's too), Linear2D and Linear1D states at the
+     bench shape and the command line's capacity (K0=600, the live design):
+     PRM3D M=48 with the cap loose and binding, Linear2D M=33, Linear1D
+     M=20; and PRM3D at K0=600 M=180, K0=663 M=48 and K0=1000 M=64, which no
+     block layout holds (the parent raised);
   4. the bench path: run_benchmark at the bench.py config (200 particles,
      K=128, 48 -> 24 measurement slots, beam 32 x 6, 300 frames), with both
      kernels launched once per frame and ATE below 0.03;
@@ -29,7 +39,10 @@ Phases, one line each; any failure exits non-zero:
      postanalysis.main on each recording: the 3D, 2D and 1D asset worlds with
      200 particles and the default PHDConfig (K=600, beam 200 x 8) over their
      whole command files, mapping-only on the 3D world, float64 on the 2D
-     world (30 frames), and the 3D recording replayed through dead
+     world (30 frames), a 3D world of 180 landmarks (sim3d.world's 40 and
+     seeded ones in their bounding box, written to the temporary
+     directory: 188 measurement slots, cut to CLI180_FRAMES frames, held to
+     the 3D run's limits), and the 3D recording replayed through dead
      reckoning. The fused kernel must launch once per float32 frame, the
      beam kernel once per float32 SLAM frame (none in mapping-only, float64
      and odometry), every ATE / OSPA must be finite and under its limit, and
@@ -52,7 +65,8 @@ Phases, one line each; any failure exits non-zero:
      version at the smoother's value-only shape (P = J*M = 1056 seeds, B=32,
      C=8, one word, 33 steps), the fused kernel with one measurement mask
      per particle ([8, M]: the leave-block-out passes) and with P=1 against
-     its plain version to phase 3's tolerances, each timed; then `-i record
+     its plain version to phase 3's tolerances, each timed (in turns with
+     the parent); then `-i record
      -a loopy` over the JAX package's own chap5 s2 odometry recording
      (tests/data/chap5_s2_odometry_jax.zip) twice, identical and within
      LOOPY_JAX_TOL of the JAX package's result on it; the chap5 s2 workflow
@@ -82,9 +96,10 @@ Phases, one line each; any failure exits non-zero:
      (B=200, C=8, 4 words, 48 slots) with 800 and 2000 particles and at
      bench_scaling's (B=32, C=6, 24 steps) with 10,000, on random and
      tie-heavy options; the fused kernel to compare_fused's tolerances at
-     chap3-default.cfg's capacity (K0=500, 48 slots) with 800 particles and
-     at bench_scaling's shape (K0=128, 48 slots, 4 merge rounds) with
-     10,000; each timed, with the launch's peak device memory. Then
+     chap3-default.cfg's capacity (K0=500, 48 slots) with 800 and 2000
+     particles and at bench_scaling's shape (K0=128, 48 slots, 4 merge
+     rounds) with 10,000; each timed (in turns with the parent), with the
+     launch's peak device memory and the phase split. Then
      run_gpu_grid chap3-s1 (800 particles, float32, all 300 frames: 300
      launches of each kernel over the phd leg, none over the odometry replay,
      ATE / OSPA under GRID_S1), run_gpu_grid.throughput at 200 and 2000
@@ -125,10 +140,11 @@ Phases, one line each; any failure exits non-zero:
      ms per rendered frame (batched and alone), write_png ms, ms per decoded
      frame (host Huffman, device), PNG bytes; the phase's seconds beside
      VIEW_BUDGET_S. It runs inside the temporary directory after phase 10.
-Cuts for the time limit: phase 7 repeats the 3D `-a isam2` command over its
-first REPEAT_FRAMES of 300 frames; phase 8 runs the port's own s2 recording once
-(the repeat runs on the JAX recording) and its 3D run to LOOPY_BUDGET_S.
-Phase 4 still runs all 300 frames.
+Cuts for the time limit: phase 6 runs the 180-landmark world over the first
+CLI180_FRAMES of mov3d.in's 300 frames; phase 7 repeats the 3D `-a isam2`
+command over its first REPEAT_FRAMES of 300 frames; phase 8 runs the port's own
+s2 recording once (the repeat runs on the JAX recording) and its 3D run to
+LOOPY_BUDGET_S. Phase 4 still runs all 300 frames.
 
 A kernel's time is its device time: torch.profiler's CUDA kernel events
 selected by the kernel's name, their mean over the launches. The wrapper's wall
@@ -136,7 +152,8 @@ time per call is printed beside it. --parent DIR also loads the port from
 another checkout (DIR/monorfs_tpu_torch, built by its own _build), times
 its kernels on the same inputs, in turns with this checkout's
 (parent, this, this, parent), and holds the fused kernel's PRM3D results
-to the parent's bit for bit. --phases runs a subset (kernels = 2 and 3).
+to the parent's bit for bit at the bench shape's states. --phases runs a
+subset (kernels = 1's checks, 2 and 3).
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -184,6 +201,7 @@ from monorfs_tpu_torch.sim.simulation import Simulation
 from monorfs_tpu_torch.slam import association, beam_kernel, fused_kernel, graph, loopy
 from monorfs_tpu_torch.slam.isam2_scan import build_isam2_scan_runner, scan_draws
 from monorfs_tpu_torch.slam.isam2_scan_da import build_mahalanobis_scan
+from monorfs_tpu_torch.slam import phd
 from monorfs_tpu_torch.slam.phd import PHDConfig
 
 ATE_LIMIT = 0.03  # ~3x the JAX package's 0.0108 on this config
@@ -382,6 +400,61 @@ def beam_phase(dev, parent):
     return row
 
 
+# The beam past the 256-thread block's 8,192 candidates: B(C+1) = 9,000 on
+# the 1024-thread block, 8 particles, 24 slots, 4 words; and the first shapes
+# no design takes (shared memory at 4 words, the 65,535 candidates at 1 word).
+WIDE_BEAM = dict(P=8, B=1000, C=8, M=24, n_lm=128)
+WIDE_FRAMES = 5
+BEYOND_BEAM = ((4769, 128), (7282, 32))  # (B, landmarks) at C=8, M=24
+
+
+def beam_wide(dev):
+    """The `beam-wide` line: the kernel at WIDE_BEAM bit-identical to the
+    plain scan on random and tie-heavy options, timed beside the plain scan
+    and the bound; the wrapper raises at BEYOND_BEAM. Then WIDE_FRAMES
+    float32 SLAM steps at that beam width through bench_core (the 3D asset
+    world): both kernels once a frame, finite weights. Returns the row."""
+    p, b, c, m = WIDE_BEAM["P"], WIDE_BEAM["B"], WIDE_BEAM["C"], WIDE_BEAM["M"]
+    inputs, n_words = beam_random(dev, 61, p, WIDE_BEAM["n_lm"], m, c)
+    beam_check("wide-B1000-C8-W4-M24", inputs, b, n_words)
+    beam_check("ties-B1000-C8-W4-M24", [torch.as_tensor(x, device=dev) for x in beam_ties(63, p, m, c, n_words)],
+               b, n_words)
+    for i, (bb, n_lm) in enumerate(BEYOND_BEAM):
+        far, nw = beam_random(dev, 65 + i, 1, n_lm, m, c)
+        if beam_kernel.takes(m, c, bb, nw):
+            raise AssertionError(f"beam_kernel.takes B={bb} C={c} n_words={nw}")
+        try:
+            beam_kernel.beam_scan_batch(*far, bb, nw)
+        except ValueError:
+            continue
+        raise AssertionError(f"the beam at B={bb} C={c} n_words={nw}: the wrapper did not raise")
+    ms = kernel_ms(lambda: beam_kernel.beam_scan_batch(*inputs, b, n_words), 10, BEAM_KERNEL)
+    plain_ms = cuda_ms(lambda: beam_kernel.beam_scan_plain(*inputs, b, n_words), 2)
+    bms, by = beam_bound(inputs, b)
+
+    assets = pathlib.Path(__file__).resolve().parent / "assets"
+    pcfg = PHDConfig(num_particles=p, max_components=128, max_measurements=48, meas_compact=m,
+                     beam_width=b, beam_candidates=c)
+    runner, carry, cmds = bench_core.setup(assets / "sim3d.world", assets / "mov3d.in", p, WIDE_FRAMES,
+                                           phd_cfg=pcfg, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    draws = bench_core.draw_chunk(runner, gen, WIDE_FRAMES, carry.vstate.landmarks.shape[0], torch.float32)
+    reset_launches()
+    out, _ = bench_core.run_frames(runner, carry, cmds, draws)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if launches != {"beam_scan": WIDE_FRAMES, "fused_stage": WIDE_FRAMES}:
+        raise AssertionError(f"B={b} steps: launches {launches}")
+    if not torch.isfinite(out.nstate.logweight).all():
+        raise AssertionError(f"B={b} steps: log-weights not finite")
+    row = dict(case="wide-B1000-C8-W4-M24", shape=dict(P=p, M=m, C=c, B=b, n_words=n_words), max_abs_err=0.0,
+               ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+    say("beam-wide", **row, beyond_raises=[dict(B=bb, C=c, M=m) for bb, _ in BEYOND_BEAM],
+        frames=WIDE_FRAMES, launches=launches)
+    return row
+
+
 # ---- phase 3: fused --------------------------------------------------------------
 
 def warm_state(seed, p, k0, m, n_lm, dev, merge_ties=False, model="PRM3D"):
@@ -452,18 +525,87 @@ def compare_fused(pred, cor, pred_ref, cor_ref):
     return max(err, float(worst))
 
 
-def phase_split(args):
+def phase_split(args, fk=fused_kernel):
     """Cycles of each fused-kernel phase across blocks (median, max), from
-    one launch with the phase clock probe."""
-    p = args[4].logw.shape[0]
-    clk = torch.zeros((p, len(fused_kernel.PHASES) + 1), dtype=torch.int64, device=args[3].device)
-    fused_kernel.fused_stage(*args, phase_clock=clk)
+    one launch with the phase clock probe; fk: this checkout's fused_kernel
+    module or the parent's."""
+    p, k0, m = args[4].logw.shape[0], args[4].capacity, args[5].shape[0]
+    names = fk.phases(k0, m) if hasattr(fk, "phases") else fk.PHASES
+    clk = torch.zeros((p, len(names) + 1), dtype=torch.int64, device=args[3].device)
+    fk.fused_stage(*args, phase_clock=clk)
     d = torch.diff(clk, dim=1).cpu().numpy()
-    split = {name: [float(np.median(d[:, i])), int(d[:, i].max())]
-             for i, name in enumerate(fused_kernel.PHASES)}
+    split = {name: [float(np.median(d[:, i])), int(d[:, i].max())] for i, name in enumerate(names)}
     total = d.sum(1)
     split["total"] = [float(np.median(total)), int(total.max())]
     return split
+
+
+def fused_turns(args, parent, reps):
+    """(this checkout's device ms runs, the parent's or None, the parent's
+    phase split or None) of the fused kernel on args, in turns with the
+    parent where the parent launches this shape (a checkout without the live
+    design raises where the block layout does not fit)."""
+    parent_run = None
+    if parent is not None:
+        try:
+            parent[1].fused_stage(*args)
+            torch.cuda.synchronize()
+            parent_run = lambda: parent[1].fused_stage(*args)  # noqa: E731
+        except ValueError as exc:
+            say("fused-parent-refuses", shape=dict(P=args[3].shape[0], K0=args[4].capacity, M=args[5].shape[0]),
+                error=str(exc))
+    ms, parent_ms = in_turns(lambda: fused_kernel.fused_stage(*args), parent_run, reps, FUSED_KERNEL)
+    split = None if parent_run is None else phase_split(args, parent[1])
+    return ms, parent_ms, split
+
+
+def fused_row(name, mname, args, reps, parent, err):
+    """The row of one timed fused shape: design, sizes, device ms (in turns
+    with the parent where it launches), plain ms, bound, phase splits."""
+    model, pcfg, params, pose, maps, z, z_mask = args
+    pp, kk, mm = pose.shape[0], maps.capacity, z.shape[0]
+    pred, cor = fused_kernel.fused_stage(*args)
+    ms, parent_ms, parent_split = fused_turns(args, parent, reps)
+    bms, by = fused_bound(pp, kk, mm, model.meas_dim, model.pose.state_dim, maps, pred, z_mask, cor, params)
+    return dict(case=name, model=mname, shape=dict(P=pp, K0=kk, M=mm, KP=kk + mm), max_abs_err=err,
+                alive_out=int((cor.logw > DEAD / 2).sum().item()),
+                alive_in_max=int((maps.logw > DEAD / 2).sum(1).max().item()),
+                design=fused_kernel.design(kk, mm), smem_bytes=fused_kernel.smem_bytes(kk, mm),
+                workspace_floats=fused_kernel.workspace_floats(kk, mm),
+                ms=float(np.mean(ms)), ms_runs=ms,
+                parent_ms=None if parent_ms is None else float(np.mean(parent_ms)), parent_ms_runs=parent_ms,
+                parent_launches=None if parent is None else parent_ms is not None,
+                plain_ms=cuda_ms(lambda: fused_kernel.fused_stage_plain(*args), 2), bound_ms=bms, bound_by=by,
+                cycles_median_max=phase_split(args), parent_cycles_median_max=parent_split)
+
+
+# csrc/'s shape decisions, copied in Python (fused_kernel.layout_bytes /
+# workspace_floats, beam_kernel.layout_bytes), against the built C functions
+LAYOUT_FUSED_K0 = (16, 64, 128, 300, 400, 500, 600, 663, 1000, 2000)
+LAYOUT_FUSED_M = (1, 20, 24, 33, 48, 64, 180, 188)
+LAYOUT_BEAM = [(m, c, b, w) for m in (24, 48, 188) for c in (6, 7, 8)
+               for b in (1, 32, 33, 64, 200, 910, 911, 1000, 1821, 3641, 4768, 4769, 7281, 7282)
+               for w in (1, 2, 4)]
+
+
+def layout_check():
+    bad = []
+    for k0 in LAYOUT_FUSED_K0:
+        for m in LAYOUT_FUSED_M:
+            got = (fused_kernel.layout_bytes(k0, m), fused_kernel.workspace_floats(k0, m))
+            want = (fused_kernel.smem_bytes(k0, m), fused_kernel.workspace_floats_built(k0, m))
+            if got != want or not 0 < got[0] <= _build.SMEM_LIMIT:
+                bad.append(("fused", k0, m, got, want))
+    for m, c, b, w in LAYOUT_BEAM:
+        got, want = beam_kernel.layout_bytes(m, c, b, w), beam_kernel.smem_bytes(m, c, b, w)
+        if got != want:
+            bad.append(("beam", m, c, b, w, got, want))
+    if bad:
+        raise AssertionError(f"Python layout copies differ from csrc/: {bad[:10]}")
+    say("layout-check", fused_shapes=len(LAYOUT_FUSED_K0) * len(LAYOUT_FUSED_M), beam_shapes=len(LAYOUT_BEAM),
+        equal=True, fused_live_smem_bytes=fused_kernel.layout_bytes(600, 48),
+        beam_block_k_B910_B911_C8=[beam_kernel.block_k(910 * 9), beam_kernel.block_k(911 * 9)],
+        beam_takes_B4768_B4769_C8_W4=[beam_kernel.takes(24, 8, 4768, 4), beam_kernel.takes(24, 8, 4769, 4)])
 
 
 def model_phd_params(name, dev):
@@ -501,7 +643,8 @@ def fused_phase(dev, parent):
     pose, maps, z, z_mask = warm_state(0, p, k0, m, 40, dev)
     args = (PRM3D, BENCH_CONFIG, params, pose, maps, z, z_mask)
     split = phase_split(args)
-    say("fused-phases", cycles_median_max=split)
+    say("fused-phases", case="bench", cycles_median_max=split,
+        parent_cycles_median_max=None if parent is None else phase_split(args, parent[1]))
 
     def run():
         return fused_kernel.fused_stage(*args)
@@ -514,45 +657,44 @@ def fused_phase(dev, parent):
     kp = k0 + m
     bms, by = fused_bound(p, k0, m, 3, 7, maps, pred, z_mask, cor, params)
     say("fused", ms=ms, parent_ms=parent_ms, wrapper_ms=w_ms, plain_ms=plain_ms, max_abs_err=err,
-        smem_bytes=fused_kernel.smem_bytes(k0, m), shape=dict(P=p, K0=k0, M=m, KP=kp))
+        smem_bytes=fused_kernel.smem_bytes(k0, m), design=fused_kernel.design(k0, m),
+        shape=dict(P=p, K0=k0, M=m, KP=kp))
 
-    # the other families, and the command-line capacity (K0 = 600: the pair
-    # table in the device-memory workspace); each state vs the plain version,
-    # then device ms, plain ms and bound at that shape
+    # the other families, and the command line's capacity (K0 = 600, the
+    # live design) and beyond it: K0 = 600 with 180 slots (a 172-landmark
+    # world), K0 = 663 and K0 = 1000, which no block layout holds; each state
+    # vs the plain version, then device ms (in turns with the parent where
+    # it launches), plain ms, bound and phase split at that shape
     cli = PHDConfig(num_particles=p)  # the command line's default: K=600, gate_top 16, 8 rounds
     bind = PHDConfig(num_particles=32)
     shapes = [
-        # name, model, config, P, M, seed, landmarks, timed
-        ("lin2d-K128-M24", "Linear2D", BENCH_CONFIG, p, m, 21, 20, True),
-        ("lin1d-K128-M24", "Linear1D", BENCH_CONFIG, p, m, 22, 10, True),
-        ("prm3d-K600-M48", "PRM3D", cli, p, 48, 23, 40, True),
-        ("prm3d-K600-M48-cap-binds", "PRM3D", bind, 32, 48, 24, 580, True),
-        ("lin2d-K600-M33", "Linear2D", cli, p, 33, 25, 25, True),
-        ("lin1d-K600-M20", "Linear1D", cli, p, 20, 26, 12, True),
+        # name, model, config, P, M, seed, landmarks
+        ("lin2d-K128-M24", "Linear2D", BENCH_CONFIG, p, m, 21, 20),
+        ("lin1d-K128-M24", "Linear1D", BENCH_CONFIG, p, m, 22, 10),
+        ("prm3d-K600-M48", "PRM3D", cli, p, 48, 23, 40),
+        ("prm3d-K600-M48-cap-binds", "PRM3D", bind, 32, 48, 24, 580),
+        ("lin2d-K600-M33", "Linear2D", cli, p, 33, 25, 25),
+        ("lin1d-K600-M20", "Linear1D", cli, p, 20, 26, 12),
+        ("prm3d-K600-M180", "PRM3D", cli, p, 180, 27, 172),
+        ("prm3d-K663-M48", "PRM3D", PHDConfig(num_particles=p, max_components=663), p, 48, 28, 40),
+        ("prm3d-K1000-M64", "PRM3D", PHDConfig(num_particles=p, max_components=1000), p, 64, 29, 60),
     ]
     extra = []
-    for name, mname, pcfg, pp, mm, seed, n_lm, timed in shapes:
+    for name, mname, pcfg, pp, mm, seed, n_lm in shapes:
         model, mparams = get_model(mname), model_phd_params(mname, dev)
-        kk = pcfg.max_components
-        pose, maps, z, z_mask = warm_state(seed, pp, kk, mm, n_lm, dev, model=mname)
+        pose, maps, z, z_mask = warm_state(seed, pp, pcfg.max_components, mm, n_lm, dev, model=mname)
         sargs = (model, pcfg, mparams, pose, maps, z, z_mask)
         pred, cor = fused_kernel.fused_stage(*sargs)
         pred_ref, cor_ref = fused_kernel.fused_stage_plain(*sargs)
         torch.cuda.synchronize()
         e = compare_fused(pred, cor, pred_ref, cor_ref)
         err = max(err, e)
-        n_in = int((maps.logw > DEAD / 2).sum(1).max().item())
-        row = dict(case=name, model=mname, shape=dict(P=pp, K0=kk, M=mm, KP=kk + mm), max_abs_err=e,
-                   alive_out=int((cor.logw > DEAD / 2).sum().item()), alive_in_max=n_in,
-                   pairs_in_device_memory=fused_kernel.pairs_global(kk, mm),
-                   smem_bytes=fused_kernel.smem_bytes(kk, mm, fused_kernel.pairs_global(kk, mm)))
-        if timed:
-            row["ms"] = kernel_ms(lambda: fused_kernel.fused_stage(*sargs), 10, FUSED_KERNEL)
-            row["plain_ms"] = cuda_ms(lambda: fused_kernel.fused_stage_plain(*sargs), 2)
-            row["bound_ms"], row["bound_by"] = fused_bound(
-                pp, kk, mm, model.meas_dim, model.pose.state_dim, maps, pred, z_mask, cor, mparams)
-        say("fused-shape", **row, cycles_median_max=phase_split(sargs))
-        extra.append(row)
+        row = fused_row(name, mname, sargs, 10, parent, e)
+        say("fused-shape", **row)
+        if name == "prm3d-K600-M48":  # the command line's 3D shape
+            say("fused-phases", case=name, cycles_median_max=row["cycles_median_max"],
+                parent_cycles_median_max=row["parent_cycles_median_max"])
+        extra.append({k: v for k, v in row.items() if not k.endswith("_runs") and "cycles" not in k})
     row = dict(name="fused_stage", route="cuda", source="monorfs_tpu_torch/csrc/fused_stage.cu",
                replaces="monorfs_tpu/slam/fused_pallas.py:621", max_abs_err=err, ms=float(np.mean(ms)),
                wrapper_ms=w_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
@@ -609,6 +751,9 @@ CLI_RUNS = [
     ("2d-float64", ["linear2d.world", "mov2d.in"],
      ["-a", "phd", "-p", "200", "--dtype", "float64", "--frames", "30"], 30, (0, 0), 0.6, 1.0),
 ]
+
+
+CLI180_LANDMARKS, CLI180_FRAMES = 180, 60
 
 
 def printed_number(text, label):
@@ -668,6 +813,23 @@ def cli_phase(dev, kernels, tmp):
                                  tmp / f"{name}.zip")
         for k, n in launches.items():
             total[k] += n
+    # a 3D world of CLI180_LANDMARKS landmarks (sim3d.world's 40 and seeded
+    # ones inside their bounding box): 188 measurement slots, past what the
+    # fused kernel's block layout held at the default MaxQuantity of 600 (the
+    # live design takes it), and a beam of 188 steps; cut to CLI180_FRAMES
+    world = World.from_file(assets / "sim3d.world")
+    lm = np.asarray(world.landmarks)
+    more = np.random.default_rng(CLI180_LANDMARKS).uniform(lm.min(0), lm.max(0), (CLI180_LANDMARKS - len(lm), 3))
+    (tmp / "sim3d-180.world").write_text(World(world.pose, np.concatenate([lm, more]),
+                                               world.measurer_params).serialize())
+    _, _, launches = run_cli("3d-slam-180-landmarks",
+                             ["-f", str(tmp / "sim3d-180.world"), "-c", str(assets / "mov3d.in"), "-a", "phd",
+                              "-p", "200", "--frames", str(CLI180_FRAMES)],
+                             CLI180_FRAMES, (1, 1), *CLI_RUNS[0][-2:], tmp / "3d-180.zip")  # the 3D run's limits
+    say("cli-180", landmarks=CLI180_LANDMARKS, measurement_slots=CLI180_LANDMARKS + 8, frames=CLI180_FRAMES,
+        fused_design=fused_kernel.design(PHDConfig().max_components, CLI180_LANDMARKS + 8))
+    for k, n in launches.items():
+        total[k] += n
     # replay the 3D recording through dead reckoning: its trajectory is the
     # recorded odometry integrated from the first pose
     _, rec, _ = run_cli("3d-replay-odometry", ["-f", str(tmp / "3d-slam.zip"), "-i", "record",
@@ -895,9 +1057,10 @@ def pass_masks(z_mask, passes):
     return rows
 
 
-def loopy_kernels(dev, kernels):
+def loopy_kernels(dev, kernels, parent):
     """The two kernels at the smoother's shapes on the 2D (M=33) and 3D
-    (M=48) worlds, each against its plain version, timed."""
+    (M=48) worlds, each against its plain version, timed (the fused kernel
+    in turns with the parent)."""
     for name, m, seed in (("loopy-P1056-B32-C8-W1-M33", 33, 17), ("loopy3d-P1536-B32-C8-W1-M48", 48, 19)):
         p, b, c = 32 * m, 32, 8  # J*M seeds of one refit node: jmaps of 32, beam 32 x 8
         inputs, n_words = beam_random(dev, seed, p, 32, m, c)
@@ -930,14 +1093,9 @@ def loopy_kernels(dev, kernels):
         pred_ref, cor_ref = fused_kernel.fused_stage_plain(*args)
         torch.cuda.synchronize()
         err = compare_fused(pred, cor, pred_ref, cor_ref)
-        bms, by = fused_bound(pp, 128, m, model.meas_dim, model.pose.state_dim, maps, pred, z_mask, cor,
-                              params)
-        row = dict(case=name, model=mname, shape=dict(P=pp, K0=128, M=m, KP=128 + m),
-                   mask_shape=list(z_mask.shape), max_abs_err=err, bound_ms=bms, bound_by=by,
-                   alive_out=int((cor.logw > DEAD / 2).sum().item()),
-                   ms=kernel_ms(lambda: fused_kernel.fused_stage(*args), 20, FUSED_KERNEL),
-                   plain_ms=cuda_ms(lambda: fused_kernel.fused_stage_plain(*args), 3))
+        row = dict(fused_row(name, mname, args, 20, parent, err), mask_shape=list(z_mask.shape))
         say("fused-shape", **row)
+        row = {k: v for k, v in row.items() if not k.endswith("_runs") and "cycles" not in k}
         shape_row(kernels, "fused_stage", row, dict(
             name="fused_stage", route="cuda", source="monorfs_tpu_torch/csrc/fused_stage.cu",
             replaces="monorfs_tpu/slam/fused_pallas.py:621"))
@@ -1232,9 +1390,10 @@ def grid_beam(dev, kernels, name, p, b, c, n_lm, m, seed):
     shape_row(kernels, "beam_scan", row, BEAM_ROW)
 
 
-def grid_fused(dev, kernels, name, pcfg, params, m, seed):
+def grid_fused(dev, kernels, parent, name, pcfg, params, m, seed):
     """The fused kernel against its plain version at one of the grid's
-    shapes, to compare_fused's tolerances; timed, with its peak memory."""
+    shapes, to compare_fused's tolerances; timed (in turns with the parent),
+    with its peak memory and phase split."""
     p, k0 = pcfg.num_particles, pcfg.max_components
     pose, maps, z, z_mask = warm_state(seed, p, k0, m, 40, dev)
     args = (PRM3D, pcfg, params, pose, maps, z, z_mask)
@@ -1245,17 +1404,15 @@ def grid_fused(dev, kernels, name, pcfg, params, m, seed):
     peak = torch.cuda.max_memory_allocated(dev) - base
     pred_ref, cor_ref = fused_kernel.fused_stage_plain(*args)
     err = compare_fused(pred, cor, pred_ref, cor_ref)
-    bms, by = fused_bound(p, k0, m, PRM3D.meas_dim, PRM3D.pose.state_dim, maps, pred, z_mask, cor, params)
-    row = dict(case=name, model="PRM3D", shape=dict(P=p, K0=k0, M=m, KP=k0 + m), max_abs_err=err,
-               alive_out=int((cor.logw > DEAD / 2).sum().item()), bound_ms=bms, bound_by=by,
-               pairs_in_device_memory=fused_kernel.pairs_global(k0, m), launch_peak_bytes=peak,
-               ms=kernel_ms(lambda: fused_kernel.fused_stage(*args), 10, FUSED_KERNEL),
-               plain_ms=cuda_ms(lambda: fused_kernel.fused_stage_plain(*args), 2))
+    row = dict(fused_row(name, "PRM3D", args, 10, parent, err), launch_peak_bytes=peak)
     say("fused-shape", **row)
-    shape_row(kernels, "fused_stage", row, FUSED_ROW)
+    say("fused-phases", case=name, cycles_median_max=row["cycles_median_max"],
+        parent_cycles_median_max=row["parent_cycles_median_max"])
+    shape_row(kernels, "fused_stage", {k: v for k, v in row.items() if not k.endswith("_runs") and "cycles" not in k},
+              FUSED_ROW)
 
 
-def grid_kernels(dev, kernels):
+def grid_kernels(dev, kernels, parent):
     """Both kernels at the grid's shapes: the command line's beam (B=200,
     C=8, 4 words, 48 slots) at the reference's 800 and 2000 particles, the
     bench-scaling beam (B=32, C=6, 24 steps) at 10,000; the fused kernel at
@@ -1270,9 +1427,12 @@ def grid_kernels(dev, kernels):
               SCALING_P, scfg.beam_width, scfg.beam_candidates, scfg.estimate_cap, scfg.beam_meas_cap, 45)
     cfg = Config.from_file(CHAP3_CFG)
     s1 = PHDConfig(num_particles=GRID_S1_PARTICLES, max_components=cfg.max_quantity, max_measurements=48)
-    grid_fused(dev, kernels, f"grid-prm3d-P800-K{cfg.max_quantity}-M48", s1, cfg.phd_params(torch.float32, dev),
-               48, 49)
-    grid_fused(dev, kernels, f"scaling-prm3d-P{SCALING_P}-K128-M48", scfg, model_phd_params("PRM3D", dev),
+    grid_fused(dev, kernels, parent, f"grid-prm3d-P800-K{cfg.max_quantity}-M48", s1,
+               cfg.phd_params(torch.float32, dev), 48, 49)
+    s2000 = PHDConfig(num_particles=2000, max_components=cfg.max_quantity, max_measurements=48)
+    grid_fused(dev, kernels, parent, f"grid-prm3d-P2000-K{cfg.max_quantity}-M48", s2000,
+               cfg.phd_params(torch.float32, dev), 48, 50)
+    grid_fused(dev, kernels, parent, f"scaling-prm3d-P{SCALING_P}-K128-M48", scfg, model_phd_params("PRM3D", dev),
                scfg.max_measurements, 51)
 
 
@@ -1764,11 +1924,16 @@ def main():
         say("parent-build", seconds=time.perf_counter() - t0, root=str(args.parent),
             ptxas=[ln.strip() for ln in plib.build_log().splitlines() if "registers" in ln])
 
-    kernels = [beam_phase(dev, parent), fused_phase(dev, parent)] if "kernels" in phases else []
+    kernels = []
+    if "kernels" in phases:
+        layout_check()
+        kernels.append(beam_phase(dev, parent))
+        kernels[-1]["shapes"].append(beam_wide(dev))
+        kernels.append(fused_phase(dev, parent))
     if "loopy" in phases:  # the smoother's kernel shapes, beside the others
-        loopy_kernels(dev, kernels)
+        loopy_kernels(dev, kernels, parent)
     if "grid" in phases:  # the grid's shapes
-        grid_kernels(dev, kernels)
+        grid_kernels(dev, kernels, parent)
     if "bench" in phases:
         bench_phase(dev, kernels)
     if "sync" in phases:

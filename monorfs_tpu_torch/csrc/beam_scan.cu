@@ -40,8 +40,12 @@
 // C = 8, NW = 4: the command line, the grids, k9; and the smoother's B = 32,
 // C = 8, NW = 1): one block of at most 256 threads per particle, thread t
 // owning the K candidates of flat indices [t K, t K + K), K the fewest of
-// 2, 4, ..., 32 that fit. The options are staged into shared memory once,
-// as in the warp design. A step:
+// 2, 4, ..., 32 that fit; past 8,192 candidates (B >= 911 at C = 8) a
+// block of at most 1024 threads, K the fewest of 16, 32, 64 that fit, up
+// to 65,535 candidates (the scan of step 3 packs two 16-bit counts) or
+// until the layout outgrows a block's shared memory (B = 4,768 at C = 8,
+// NW = 4, M = 24). The options are staged into shared memory once, as in
+// the warp design. A step:
 //   1. each thread forms its candidates' order keys once, in registers;
 //   2. a radix select finds the B-th largest key: per 8-bit digit from the
 //      top, a shared histogram (integer atomics, so the counts do not depend
@@ -62,6 +66,8 @@
 // P=2000 in two. At the smoother's B = 32, C = 8 (K = 2, 160 threads) this
 // design also beat the warp design widened to 16 option slots
 // (chip_smoke.py's beam-block line, PERF.md), which was therefore not kept.
+// The 1024-thread block runs one block an SM at up to 64 registers a
+// thread; its K = 64 keeps part of its keys in local memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,6 +83,8 @@ constexpr int WARP_PARTICLES = 4;    // particles (warps) per block of the warp 
 constexpr int NWMAX = 4;             // used-set words a lane keeps in registers there
 constexpr int BLOCK_THREADS = 256;   // threads of one particle's block, at most
 constexpr int BLOCK_RESIDENT = 8;    // blocks an SM must hold at once (caps registers at 32)
+constexpr int WIDE_THREADS = 1024;   // the block past BLOCK_THREADS x 32 candidates
+constexpr int MAX_CANDIDATES = 65535;  // B(C+1) the block scan's 16-bit counts hold
 constexpr int RADIX = 256;           // bins of one radix-select pass (8 bits)
 
 // value of option c of a row whose words are rw: clutter, the landmark's
@@ -261,10 +269,10 @@ __host__ __device__ inline BlockLayout block_layout(int M, int C, int B, int NW)
   return l;
 }
 
-// One block of at most BLOCK_THREADS threads per particle; thread t owns the
-// K candidates of flat indices [t K, t K + K).
-template <int K>
-__global__ void __launch_bounds__(BLOCK_THREADS, BLOCK_RESIDENT)
+// One block of at most T threads per particle (R of them resident an SM);
+// thread t owns the K candidates of flat indices [t K, t K + K).
+template <int K, int T_MAX, int R>
+__global__ void __launch_bounds__(T_MAX, R)
 beam_scan_block_kernel(const float* __restrict__ base, const float* __restrict__ od,
                        const int* __restrict__ wk, const int* __restrict__ bk,
                        float* __restrict__ out, int M, int C, int B, int NW) {
@@ -429,11 +437,15 @@ beam_scan_block_kernel(const float* __restrict__ base, const float* __restrict__
   for (int i = t; i < B; i += T) out[(size_t)p * B + i] = scores[cur * B + i];
 }
 
-// candidates a thread of the block design owns: the fewest that fit NC
-// candidates into BLOCK_THREADS threads (0: the shape is too large)
+// candidates a thread of the block design owns: the fewest of 2..32 that
+// fit NC candidates into BLOCK_THREADS threads, else the fewest of 16..64
+// that fit them into WIDE_THREADS (0: the shape is too large)
 int block_k(int NC) {
   for (int k = 2; k <= 32; k <<= 1)
     if ((NC + k - 1) / k <= BLOCK_THREADS) return k;
+  if (NC > MAX_CANDIDATES) return 0;
+  for (int k = 16; k <= 64; k <<= 1)
+    if ((NC + k - 1) / k <= WIDE_THREADS) return k;
   return 0;
 }
 
@@ -454,16 +466,18 @@ size_t smem_bytes(int M, int C, int B, int NW) {
   return bytes <= SMEM_MAX ? bytes : 0;
 }
 
-std::atomic<size_t> smem_set_w[kMaxDevices], smem_set_b[kMaxDevices];
+std::atomic<size_t> smem_set_w[kMaxDevices];
 
-template <int K>
+// the 256-thread block for K <= 32 at most 8,192 candidates, else the 1024-thread one
+template <int K, int T_MAX, int R>
 cudaError_t launch_block(const float* base, const float* od, const int* wk, const int* bk,
                          float* out, int P, int M, int C, int B, int NW, size_t smem,
                          cudaStream_t stream) {
-  cudaError_t err = allow_smem((const void*)beam_scan_block_kernel<K>, smem_set_b, smem);
+  static std::atomic<size_t> smem_set[kMaxDevices];  // per instantiation
+  cudaError_t err = allow_smem((const void*)beam_scan_block_kernel<K, T_MAX, R>, smem_set, smem);
   if (err != cudaSuccess) return err;
   const int threads = (((B * (C + 1) + K - 1) / K + 31) / 32) * 32;
-  beam_scan_block_kernel<K><<<P, threads, smem, stream>>>(base, od, wk, bk, out, M, C, B, NW);
+  beam_scan_block_kernel<K, T_MAX, R><<<P, threads, smem, stream>>>(base, od, wk, bk, out, M, C, B, NW);
   return cudaGetLastError();
 }
 
@@ -492,11 +506,18 @@ extern "C" int beam_scan_launch(const float* base, const float* od,
         base, od, wk, bk, out, P, M, C, B, NW);
     return (int)cudaGetLastError();
   }
+  constexpr int BT = BLOCK_THREADS, BR = BLOCK_RESIDENT, WT = WIDE_THREADS;
+  const bool wide = B * (C + 1) > BLOCK_THREADS * 32;
   switch (block_k(B * (C + 1))) {
-    case 2: return (int)launch_block<2>(base, od, wk, bk, out, P, M, C, B, NW, smem, st);
-    case 4: return (int)launch_block<4>(base, od, wk, bk, out, P, M, C, B, NW, smem, st);
-    case 8: return (int)launch_block<8>(base, od, wk, bk, out, P, M, C, B, NW, smem, st);
-    case 16: return (int)launch_block<16>(base, od, wk, bk, out, P, M, C, B, NW, smem, st);
-    default: return (int)launch_block<32>(base, od, wk, bk, out, P, M, C, B, NW, smem, st);
+    case 2: return (int)launch_block<2, BT, BR>(base, od, wk, bk, out, P, M, C, B, NW, smem, st);
+    case 4: return (int)launch_block<4, BT, BR>(base, od, wk, bk, out, P, M, C, B, NW, smem, st);
+    case 8: return (int)launch_block<8, BT, BR>(base, od, wk, bk, out, P, M, C, B, NW, smem, st);
+    case 16:
+      return wide ? (int)launch_block<16, WT, 1>(base, od, wk, bk, out, P, M, C, B, NW, smem, st)
+                  : (int)launch_block<16, BT, BR>(base, od, wk, bk, out, P, M, C, B, NW, smem, st);
+    case 32:
+      return wide ? (int)launch_block<32, WT, 1>(base, od, wk, bk, out, P, M, C, B, NW, smem, st)
+                  : (int)launch_block<32, BT, BR>(base, od, wk, bk, out, P, M, C, B, NW, smem, st);
+    default: return (int)launch_block<64, WT, 1>(base, od, wk, bk, out, P, M, C, B, NW, smem, st);
   }
 }

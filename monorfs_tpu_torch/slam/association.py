@@ -225,8 +225,9 @@ def quasi_set_log_likelihood(model, meas_cov, pd, log_clutter, pose, map_means, 
 
     beam: the beam scan to use. None takes beam_kernel.beam_scan_batch for
     a float32 call that needs no gradient (one launch for every row; the
-    plain version for CPU tensors) and the plain beam otherwise; gradients
-    and Hessians always go through the plain beam under torch.autograd."""
+    plain version for CPU tensors; beam_kernel.pick) and the plain beam
+    otherwise; gradients and Hessians always go through the plain beam
+    under torch.autograd."""
     lead = [pose.shape[:-1], map_means.shape[:-2], map_mask.shape[:-1], z.shape[:-2],
             z_mask.shape[:-1]] + ([lm_cov.shape[:-3]] if lm_cov is not None else [])
     batch = torch.broadcast_shapes(*lead)
@@ -249,11 +250,12 @@ def quasi_set_log_likelihood(model, meas_cov, pd, log_clutter, pose, map_means, 
     else:
         ll = likelihood_matrix(mu, log_pd, logmult, r_inv, z, 12.0)
     ll = torch.where(z_mask[:, None, :], ll, torch.full_like(ll, NEG))
-    if beam is None:
-        value_only = not (torch.is_grad_enabled() and pose.requires_grad)
-        if ll.dtype == torch.float32 and value_only:
-            from .beam_kernel import beam_scan_batch as beam
-        else:
-            beam = beam_scan
     base, od, wk, bk, n_words = prepare_options(ll, log_miss, log_clutter, map_mask, z_mask)
+    if beam is None:
+        if torch.is_grad_enabled() and pose.requires_grad:
+            beam = beam_scan
+        else:
+            from .beam_kernel import pick
+
+            beam = pick(od.dtype)
     return logsumexp_scores(beam(base, od, wk, bk, beam_width, n_words)).reshape(batch)

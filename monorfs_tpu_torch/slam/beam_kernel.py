@@ -22,6 +22,58 @@ def _launcher():
     )
 
 
+# csrc/beam_scan.cu's constants of the shape decision
+_SMEM_MAX = _build.SMEM_LIMIT
+_WARP_PARTICLES = 4
+_NWMAX = 4
+_BLOCK_THREADS = 256
+_WIDE_THREADS = 1024
+_MAX_CANDIDATES = 65535
+_RADIX = 256
+
+
+def _warp_words(m, c):
+    return m * (c + 1) + 2 * m * c + 2
+
+
+def block_k(nc):
+    """Candidates a thread of the block design owns at nc = B(C+1) (the
+    Python copy of block_k): the fewest of 2..32 that fit 256 threads, else
+    the fewest of 16..64 that fit 1024, up to 65,535; 0 past that."""
+    ks = [(k, _BLOCK_THREADS) for k in (2, 4, 8, 16, 32)]
+    ks += [(k, _WIDE_THREADS) for k in (16, 32, 64)] if nc <= _MAX_CANDIDATES else []
+    return next((k for k, threads in ks if -(-nc // k) <= threads), 0)
+
+
+def layout_bytes(m, c, beam_width, n_words):
+    """The Python copy of beam_scan_smem_bytes (use_warp, block_k,
+    block_layout's total, SMEM_MAX): shared memory one block asks for at
+    this shape, 0 when no design of the kernel takes it."""
+    ww = 4 * _warp_words(m, c)
+    if beam_width <= 32 and c + 1 <= 8 and n_words <= _NWMAX and ww <= _SMEM_MAX:
+        return ww * min(_SMEM_MAX // ww, _WARP_PARTICLES)
+    if block_k(beam_width * (c + 1)) == 0:
+        return 0
+    words = 2 * (beam_width + 1) + m * (c + 1) + 2 * m * c + 2 * beam_width + 2 * beam_width * n_words
+    words = (words + 3) & ~3  # the histogram, 16-byte aligned
+    words += _RADIX + 32 + 4
+    return 4 * words if 4 * words <= _SMEM_MAX else 0
+
+
+def takes(m, c, beam_width, n_words):
+    """Whether the kernel takes this shape (beam_scan_smem_bytes non-zero)."""
+    return layout_bytes(m, c, beam_width, n_words) > 0
+
+
+def pick(dtype, kernels=None):
+    """The beam scan of a step or likelihood of this dtype: kernels=None
+    takes the kernel's wrapper for float32 and the plain scan otherwise,
+    True the wrapper, False the plain scan. The wrapper launches the kernel
+    for CUDA tensors, raising on a shape no design takes (takes), and runs
+    the plain scan for CPU tensors."""
+    return beam_scan_batch if (dtype == torch.float32 if kernels is None else kernels) else beam_scan_plain
+
+
 @functools.cache
 def smem_bytes(m, c, beam_width, n_words):
     """Shared memory one block of the kernel asks for at this shape; 0 when

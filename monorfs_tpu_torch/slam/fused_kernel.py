@@ -19,10 +19,17 @@ follow the kernel semantics of fused_pallas.py:21-41, not the XLA path's:
     leader's mean.
 
 The kernel and the plain version take the three model families (PRM3D,
-Linear2D, Linear1D: measurement dimension D = 3, 2, 1; pose width 7, 2, 1).
-Where a block's shared memory cannot hold the whole layout (K0 = 600), the
-[M, K0+M] pair table lives in a per-particle workspace in device memory,
-allocated once per shape and device."""
+Linear2D, Linear1D: measurement dimension D = 3, 2, 1; pose width 7, 2, 1)
+and every (K0, M). The kernel has two designs, picked by the shape alone:
+the block design where its whole layout fits a block's shared memory
+(K0 = 128: the bench, the smoother, the scaling runs), else the live design
+(K0 = 500-1000: the command line, the grids), which runs each phase over a
+particle's live components and the birth candidates only and keeps a table
+in a per-particle device-memory workspace (allocated once per shape and
+device, sized by the built library's fused_stage_workspace_floats) where it
+does not fit its shared arena. `design`, `layout_bytes` and
+`workspace_floats` are Python copies of the C decision and sizes, for the
+CPU tests; chip_smoke.py holds them against the C functions."""
 
 import ctypes
 import functools
@@ -36,6 +43,8 @@ from ..gm.mixture import ALIVE_THRESHOLD, DEAD, SGM, topk_stable
 BISECT = 30
 PHASES = ("births", "predicted write", "EKF", "pairs", "cut", "compaction",
           "merge relation", "leader rounds", "pooling and write")
+# the live design's clock: its first pass copies pred's map part
+LIVE_PHASES = ("map copy, live list and births", "predicted births write") + PHASES[2:]
 _PAIRS = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
 
 
@@ -267,30 +276,66 @@ def model_params(model):
     raise NotImplementedError(f"the fused kernel has no instantiation for {model.name}")
 
 
-@functools.cache
-def smem_bytes(k0, m, pairs_global=False):
-    """Shared memory one block of the kernel asks for at this shape, with the
-    pair table in shared memory or in the device-memory workspace."""
-    fn = _build.function("fused_stage_smem_bytes", [ctypes.c_int] * 3, ctypes.c_size_t)
-    return fn(k0, m, int(pairs_global))
+# csrc/fused_stage.cu's sizes: the block layout (Layout), the live design's
+# shared memory (LIVE_FIXED + LIVE_ARENA words) and workspace (LiveWs)
+_LIVE_SMEM_WORDS = 32 + 64 + 2 * 128 * 8 + 15872
+
+
+def _block_words(k0, m):
+    kp, nwk = k0 + m, (k0 + 31) // 32
+    return 32 + 40 * kp + 9 * m + m * kp + 23 * k0 + k0 * nwk + nwk + 64
+
+
+def design(k0, m):
+    """"block" where the block layout fits one block's shared memory, else
+    "live" (csrc/fused_stage.cu, block_fits)."""
+    return "block" if 4 * _block_words(k0, m) <= _build.SMEM_LIMIT else "live"
+
+
+def layout_bytes(k0, m):
+    """Shared memory one block asks for at this shape (the Python copy of
+    fused_stage_smem_bytes)."""
+    return 4 * (_block_words(k0, m) if design(k0, m) == "block" else _LIVE_SMEM_WORDS)
+
+
+def workspace_floats(k0, m):
+    """f32 words of one particle's device-memory workspace: 0 for the block
+    design, else a slot for each of the live design's tables at its largest
+    (N = K0 + M local components and the cut's list of their entries, K0
+    output slots; the Python copy of
+    fused_stage_workspace_floats)."""
+    if design(k0, m) == "block":
+        return 0
+    kpm, nwk = k0 + m, (k0 + 31) // 32
+    return 9 * m + (41 + 2 * m) * kpm + 22 * k0 + k0 * nwk + nwk
+
+
+def phases(k0, m):
+    """The phase clock's names at this shape."""
+    return PHASES if design(k0, m) == "block" else LIVE_PHASES
 
 
 @functools.cache
-def pairs_global(k0, m):
-    """Whether the pair table goes to the device-memory workspace at this
-    shape; raises when the layout fits in neither form."""
-    if smem_bytes(k0, m) <= _build.SMEM_LIMIT:
-        return False
-    if smem_bytes(k0, m, True) <= _build.SMEM_LIMIT:
-        return True
-    raise ValueError(f"K0={k0}, M={m} needs more shared memory than a block has")
+def smem_bytes(k0, m):
+    """fused_stage_smem_bytes of the built library (on the card)."""
+    fn = _build.function("fused_stage_smem_bytes", [ctypes.c_int] * 2, ctypes.c_size_t)
+    return fn(k0, m)
+
+
+@functools.cache
+def workspace_floats_built(k0, m):
+    """fused_stage_workspace_floats of the built library (on the card)."""
+    fn = _build.function("fused_stage_workspace_floats", [ctypes.c_int] * 2, ctypes.c_size_t)
+    return fn(k0, m)
 
 
 @functools.cache
 def _workspace(p, k0, m, device):
-    """The pair-table workspace [P, M, K0+M] f32 of a shape, allocated once
-    per device; launches on one stream run in order, so they share it."""
-    return torch.empty((p, m, k0 + m), dtype=torch.float32, device=device)
+    """The live design's workspace [P, fused_stage_workspace_floats] f32 of
+    a shape, allocated once per device (None for the block design, which
+    takes none); launches on one stream run in order, so they share it."""
+    n = workspace_floats_built(k0, m)
+    return torch.empty((p, n), dtype=torch.float32, device=device) if n > 0 else None
 
 
 @functools.cache
@@ -308,7 +353,7 @@ def fused_stage(model, cfg, params, pose, maps: SGM, z, z_mask, packed=None, pha
     reads row p; the smoother's leave-block-out passes). packed: pack_params(model, params) on the device, when the caller keeps
     it across calls. phase_clock: an int64 [P, len(PHASES) + 1] CUDA tensor
     that receives each block's clock64() at entry and after each phase of
-    PHASES (a measurement; it adds a barrier per phase). Returns (predicted
+    phases(K0, M) (a measurement; it adds a barrier per phase). Returns (predicted
     SGM [P, K0+M], corrected SGM [P, K0]). On CUDA tensors the kernel is
     launched or an error is raised; the plain version runs for CPU tensors
     only."""
@@ -334,7 +379,8 @@ def fused_stage(model, cfg, params, pose, maps: SGM, z, z_mask, packed=None, pha
             )
     if cfg.gate_top < 1 or cfg.merge_rounds < 0:
         raise ValueError("gate_top must be positive and merge_rounds non-negative")
-    work = _workspace(p, k0, m, dev).data_ptr() if pairs_global(k0, m) else 0
+    ws = _workspace(p, k0, m, dev)
+    work = 0 if ws is None else ws.data_ptr()
     clk = 0
     if phase_clock is not None:
         shape = (p, len(PHASES) + 1)

@@ -435,7 +435,7 @@ def make_slam_step(model, cfg: PHDConfig, slam: bool = True, kernels=None, stage
              fused_kernel.supported(model, dtype) holds, else the
              XLA-semantics functions above; the beam kernel
              (beam_kernel.beam_scan_batch) for every float32 SLAM step,
-             else the plain beam. A wrapper launches its CUDA kernel for
+             else the plain beam (beam_kernel.pick). A wrapper launches its CUDA kernel for
              CUDA tensors and runs its plain version for CPU tensors. So the
              Kinect model in float32 takes the beam kernel and not the
              fused one;
@@ -468,7 +468,6 @@ def make_slam_step(model, cfg: PHDConfig, slam: bool = True, kernels=None, stage
                 f"{state.pose.dtype} and the {model.name} model"
             )
         use_fused = fused_ok if kernels is None else bool(kernels)
-        use_beam = f32 if kernels is None else bool(kernels)
         with record_function("phd.predict"):
             state = predict_poses(model, params, state, odometry, motion_normals, slam, true_pose)
             if cfg.meas_compact and cfg.meas_compact < cfg.max_measurements:
@@ -509,7 +508,7 @@ def make_slam_step(model, cfg: PHDConfig, slam: bool = True, kernels=None, stage
                     model, cfg, params, state.pose, predicted, corrected, z, z_mask
                 )
             with record_function("phd.beam_scan"):
-                beam = beam_kernel.beam_scan_batch if use_beam else association.beam_scan
+                beam = beam_kernel.pick(od.dtype, kernels)
                 scores = beam(base, od, wk, bk, cfg.beam_width, n_words)
             increment = association.logsumexp_scores(scores) + rest
         with record_function("phd.normalise_resample"):

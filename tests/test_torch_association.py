@@ -162,3 +162,85 @@ def test_fuzzy_pd_matches_jax(model_name, jdt, tdt, tol):
             if fuzzy:  # visible, hidden and ramped landmarks all occur
                 log_pd = got[1].numpy()
                 assert (log_pd < np.log(0.9) - 1).any() and (np.isclose(log_pd, np.log(0.9))).any()
+
+
+@pytest.mark.parametrize("m,c,b,n_words,bytes_", [
+    (24, 8, 910, 4, 47264),    # the 256-thread block's largest B at C=8: 8,190 candidates
+    (24, 8, 911, 4, 47312),    # 8,199 candidates: the 1024-thread block, 16 a thread
+    (24, 8, 1000, 4, 51584),   # chip_smoke.py's wide beam
+    (24, 8, 4768, 4, 232448),  # the largest B at C=8, 4 words: all of a block's shared memory
+    (24, 8, 4769, 4, 0),
+    (24, 8, 7281, 1, 178320),  # the largest at 1 word: 65,529 candidates
+    (24, 8, 7282, 1, 0),       # 65,538 candidates: past the block scan's 16-bit counts
+    (24, 7, 32, 1, 8480),      # the warp design's edge: B=32, C+1=8 (four particles a block)
+    (24, 7, 33, 1, 4080),      # B=33: the block design
+    (24, 8, 32, 1, 4352),      # C+1=9: the block design
+    (48, 8, 200, 4, 15584),    # the default PHDConfig's 200 x 8 on 48 slots
+])
+def test_beam_takes_edges(m, c, b, n_words, bytes_):
+    """beam_kernel.layout_bytes, the Python copy of csrc/beam_scan.cu's
+    shape decision (chip_smoke.py holds it against beam_scan_smem_bytes
+    over a grid of shapes), at the edges of the designs."""
+    assert beam_kernel.layout_bytes(m, c, b, n_words) == bytes_
+    assert beam_kernel.takes(m, c, b, n_words) == (bytes_ > 0)
+
+
+def test_beam_pick_and_wide_scan():
+    """beam_kernel.pick, a function of dtype alone: the kernel's wrapper for
+    float32 at the default 200 x 8 and at B=1000 C=8 alike (the block design
+    takes both), the plain scan for float64; kernels=True takes the wrapper,
+    kernels=False the plain scan. The wrapper at B=1000 (the plain version
+    on CPU tensors) equals the JAX scan bit for bit."""
+    assert beam_kernel.pick(torch.float32) is beam_kernel.beam_scan_batch
+    assert beam_kernel.takes(48, 8, 200, 4) and beam_kernel.takes(24, 8, 1000, 4)
+    assert beam_kernel.pick(torch.float64) is beam_kernel.beam_scan_plain
+    assert beam_kernel.pick(torch.float32, kernels=False) is beam_kernel.beam_scan_plain
+    assert beam_kernel.pick(torch.float64, kernels=True) is beam_kernel.beam_scan_batch
+
+    ll, log_miss, n_mask, m_mask, log_clutter = _instances(19, 2, 128, 24)
+    jbase, jod, jwk, jbk, _ = _jax_prepare(ll, log_miss, n_mask, m_mask, log_clutter, 8)
+    base, od, wk, bk, n_words = association.prepare_options(
+        torch.from_numpy(ll), torch.from_numpy(log_miss), log_clutter,
+        torch.from_numpy(n_mask), torch.from_numpy(m_mask), 8,
+    )
+    out = beam_kernel.beam_scan_batch(torch.from_numpy(np.array(jbase)), od, wk, bk, 1000, n_words)
+    ref = jax.vmap(lambda b_, o, w, k: jassoc.beam_scan(b_, o, w, k, 1000, n_words))(jbase, jod, jwk, jbk)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+def test_step_and_quasi_ll_wide_beams():
+    """A float32 SLAM step at B=1000 C=8 (bench_core on the 3D asset world,
+    CPU) runs with kernels=None and gives finite weights; a step built with
+    kernels=True gives the same bits (on CPU tensors both run the plain
+    versions). The value-only quasi likelihood at B=1000 equals the plain
+    beam's."""
+    import pathlib
+
+    from monorfs_tpu_torch import bench_core
+    from monorfs_tpu_torch.slam import phd
+    from monorfs_tpu_torch.models import PRM3D
+
+    assets = pathlib.Path(__file__).resolve().parent.parent / "assets"
+    pcfg = phd.PHDConfig(num_particles=4, max_components=32, max_measurements=48, meas_compact=24,
+                         beam_width=1000, beam_candidates=8)
+    runner, carry, cmds = bench_core.setup(assets / "sim3d.world", assets / "mov3d.in", 4, 2,
+                                           phd_cfg=pcfg, device="cpu")
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    draws = bench_core.draw_chunk(runner, gen, 2, carry.vstate.landmarks.shape[0], torch.float32)
+    out, _ = bench_core.run_frames(runner, carry, cmds, draws)
+    assert torch.isfinite(out.nstate.logweight).all()
+    strict = runner._replace(step=phd.make_slam_step(runner.model, pcfg, kernels=True))
+    out_strict, _ = bench_core.run_frames(strict, carry, cmds, draws)
+    assert torch.equal(out_strict.nstate.logweight, out.nstate.logweight)
+
+    rng = np.random.default_rng(23)
+    lm = torch.tensor(rng.uniform(-0.5, 0.5, (3, 40, 3)) + np.array([0, 0, 1.0]), dtype=torch.float32)
+    pose = torch.tensor([[0, 0, 0, 1, 0, 0, 0]] * 3, dtype=torch.float32)
+    z = PRM3D.measure(PRM3D.params, pose[:, None, :], lm[:, :24])
+    args = (PRM3D, torch.eye(3) * 0.01, 0.9, -4.0, pose, lm, torch.ones(3, 40, dtype=torch.bool), z,
+            torch.ones(3, 24, dtype=torch.bool))
+    ll = association.quasi_set_log_likelihood(*args, beam_width=1000)
+    assert torch.isfinite(ll).all()
+    assert torch.equal(ll, association.quasi_set_log_likelihood(*args, beam_width=1000,
+                                                                beam=association.beam_scan))

@@ -257,3 +257,96 @@ def test_fused_mask_per_particle(semantics, model_name):
         for a, b in zip(out_s, out_r):
             assert torch.equal(a, b)
     assert not torch.equal(batched[-1].logw, shared[-1].logw)  # the masks mattered
+
+
+@pytest.mark.parametrize("k0", [128, 500, 600, 663, 1000])
+@pytest.mark.parametrize("m", [24, 48, 180, 188])
+def test_layout_sizes_finite(k0, m):
+    """fused_kernel's Python copies of csrc/fused_stage.cu's sizes
+    (chip_smoke.py holds them against fused_stage_smem_bytes and
+    fused_stage_workspace_floats over a grid of shapes): every (K0, M)
+    launches, the block design where its layout fits a block, else the live
+    design, whose shared memory does not grow with K0 and whose workspace
+    holds every table at its largest."""
+    from monorfs_tpu_torch import _build
+
+    smem, ws = fused_kernel.layout_bytes(k0, m), fused_kernel.workspace_floats(k0, m)
+    assert 0 < smem <= _build.SMEM_LIMIT
+    if fused_kernel.design(k0, m) == "block":
+        assert ws == 0
+    else:
+        assert smem == fused_kernel.layout_bytes(1000, 188) == 72064  # 3 blocks an SM
+        kp = k0 + m
+        # mixture, EKF, pair table, the cut's list, output and merge tables
+        assert ws >= 40 * kp + 2 * m * kp + 22 * k0
+    names = fused_kernel.phases(k0, m)
+    assert len(names) == len(fused_kernel.PHASES) and names[2:] == fused_kernel.PHASES[2:]
+
+
+def test_layout_designs():
+    """The bench shape keeps the block design and its 54,000 bytes
+    (chip_smoke.py prints them as smem_bytes); the command line's and the
+    grid's capacities take the live design."""
+    assert fused_kernel.design(128, 24) == "block" and fused_kernel.layout_bytes(128, 24) == 54000
+    assert fused_kernel.design(128, 48) == "block"  # bench_scaling's shape
+    assert fused_kernel.design(600, 48) == fused_kernel.design(500, 48) == "live"
+
+
+def _insert_dead(leaves, slots, rng):
+    """The map's leaves with dead components (DEAD weight, random mean and
+    covariance entries, not a covariance) inserted before the given slots."""
+    out = []
+    for i, leaf in enumerate(leaves):
+        fill = np.full(len(slots), mixture.DEAD) if i == 9 else rng.normal(0, 5, len(slots))
+        out.append(np.stack([np.insert(row, slots, fill) for row in leaf]))
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_dead_slots_change_nothing(seed):
+    """The invariant the live design rests on: dead components at random
+    slots of a warm map leave fused_stage_plain's corrected set as it was
+    (the cap does not bind), and its predicted mixture differs only at
+    those slots."""
+    rng = np.random.default_rng(seed)
+    p, k0, m, extra = 4, 48, 12, 20
+    pose, leaves, z, z_mask = fused_state(40 + seed, p, k0, m, 14)
+    slots = np.sort(rng.integers(0, k0 + 1, extra))
+    wide = _insert_dead(leaves, slots, rng)
+    kept = np.ones(k0 + extra + m, bool)
+    kept[slots + np.arange(extra)] = False
+    _, tparams = params_pair()
+    out = []
+    for lv, k in ((leaves, k0), (wide, k0 + extra)):
+        cfg = phd.PHDConfig(num_particles=p, max_components=k, max_measurements=m, gate_top=8,
+                            merge_rounds=4)
+        out.append(fused_kernel.fused_stage_plain(PRM3D, cfg, tparams, t32(pose), SGM(*[t32(x) for x in lv]),
+                                                  t32(z), torch.tensor(z_mask)))
+    (pred, cor), (wpred, wcor) = out
+    for a, b in zip(pred, wpred):
+        assert torch.equal(b[:, kept], a)
+    n, wn = (cor.logw > -0.25e30).sum(1), (wcor.logw > -0.25e30).sum(1)
+    assert torch.equal(n, wn) and (n > 0).all()
+    assert (wcor.logw[:, k0:] < -0.25e30).all()
+    assert_sets_close(jmixture.SGM(*[jnp.asarray(x.numpy()) for x in cor]), wcor, p)
+    if seed == 0:  # the wide map through the Pallas kernel in interpret mode
+        jcfg = jphd.PHDConfig(num_particles=p, max_components=k0 + extra, max_measurements=m, gate_top=8,
+                              merge_rounds=4)
+        jparams, _ = params_pair()
+        jpred, jcor = fused_pallas.fused_stage(
+            get_model("PRM3D"), jcfg, jparams, jnp.asarray(pose, jnp.float32),
+            jmixture.SGM(*[jnp.asarray(x, jnp.float32) for x in wide]), jnp.asarray(z, jnp.float32),
+            jnp.asarray(z_mask), interpret=True, bp=4)
+        _assert_pred_close(jpred, wpred)
+        assert_sets_close(jcor, wcor, p)
+
+
+def test_fused_plain_k600_m180_matches_pallas():
+    """K0 = 600 with 180 measurement slots (a 172-landmark world at the
+    command line's default capacity, past what the kernel's block layout
+    held), two particles, PRM3D."""
+    fields = dict(num_particles=2, max_components=600, max_measurements=180)
+    (jpred, jcor), (tpred, tcor), _ = _both_on_case("PRM3D", fields, (27, 2, 600, 180, 172))
+    _assert_pred_close(jpred, tpred)
+    assert_sets_close(jcor, tcor, 2)
+    assert (tcor.logw.numpy() > -0.25e30).sum() >= 2 * 100
