@@ -1,0 +1,4 @@
+"""`beam_roofline` in the cells whose frame the host paces (they report
+`fps.host_paced`, whose bound follows their wider spread)."""
+
+from .beam_roofline import read  # noqa: F401

@@ -1,0 +1,4 @@
+"""`fps` in the cells whose frame the host paces (they report
+`fps.host_paced`, whose bound follows their wider spread)."""
+
+from .fps import read  # noqa: F401

@@ -1,0 +1,4 @@
+"""`idle_share` in the cells whose frame the host paces (they report
+`fps.host_paced`, whose bound follows their wider spread)."""
+
+from .idle_share import read  # noqa: F401
