@@ -12,10 +12,10 @@ the command-line path.
 Runs one warm-up chunk, then `--frames` frames under torch.profiler (CPU and
 CUDA activity) and prints one JSON object: host wall time per frame, device
 time per frame (kernels, copies and fills) and the device's idle share, the
-stage ranges (vehicle, phd.*) with the host time spent in them and the
-device time of the work they launched, per frame, the port's hand-written
-kernels' device time and launches per frame, the device events with the
-most time, and device events per frame. --trace also writes a Chrome
+stage ranges (spans.SPANS: vehicle, phd.* and the ranges nested in them) with
+the host time spent in them and the device time of the work they launched,
+per frame, the port's hand-written kernels' device time and launches per
+frame, the device events with the most time, and device events per frame. --trace also writes a Chrome
 trace.
 
 --cli profiles the Simulation the command line builds for that asset world
@@ -23,7 +23,7 @@ trace.
 200 x 8, or the capacity of a --config cfg file) twice, with and without the
 per-frame history (`_record`, which reads the best map and every pose to the
 host), and prints both objects, each with the peak device memory of its
-frames.
+frames and its device-to-host reads a frame (Simulation.reads).
 
 --graph profiles the graph backend on the 3D asset world: `nav` the
 host-interactive navigator through Simulation -a isam2 (float64), frames
@@ -76,15 +76,10 @@ from .bench_core import CHUNK, draw_chunk, run_frames, setup
 from .config import Config
 from .io import World, parse_commands
 from .sim.simulation import Simulation
+from .spans import SPANS
 
 CLI_WORLDS = {"3d": ("sim3d.world", "mov3d.in"), "2d": ("linear2d.world", "mov2d.in"),
               "2dloop": ("linear2dloop.world", "mov2dloop.in"), "1d": ("linear1d.world", "mov1d.in")}
-STAGES = ("vehicle", "record", "phd.predict", "phd.fused_stage", "phd.weight_inputs",
-          "phd.beam_scan", "phd.normalise_resample", "graph.assoc", "graph.hungarian",
-          "graph.auction", "graph.solve", "graph.marginals", "loopy.refit.seeds",
-          "loopy.refit.grad", "loopy.refit.fan", "loopy.refit.map", "loopy.objective.cavity",
-          "loopy.objective.ll", "loopy.final_map", "loopy.sweep.forward", "loopy.sweep.backward",
-          "loopy.sweep.map", "loopy.sweep.fuse", "kinect.frontend")
 GRAPH_WARM = 250  # navigator frames run before its profile starts
 KERNELS = {"beam_scan": "beam_scan", "fused_stage": "fused_stage_kernel"}  # name: substring
 PACKAGE = pathlib.Path(__file__).resolve().parent
@@ -154,11 +149,11 @@ def count_syncs(fn, frames):
 def summarise(prof, wall, n):
     """The profile of n frames that took `wall` seconds, as a dict."""
     events = prof.events()
-    on_device = [e for e in events if e.device_type == DeviceType.CUDA and e.name not in STAGES]
+    on_device = [e for e in events if e.device_type == DeviceType.CUDA and e.name not in SPANS]
     device_us = sum(e.time_range.elapsed_us() for e in on_device)
     stages = {}
     for e in events:
-        if e.device_type == DeviceType.CPU and e.name in STAGES:
+        if e.device_type == DeviceType.CPU and e.name in SPANS:
             st = stages.setdefault(e.name, {"host_ms": 0.0, "device_ms": 0.0})
             st["host_ms"] += e.cpu_time_total / 1e3 / n
             st["device_ms"] += e.device_time_total / 1e3 / n
@@ -207,6 +202,7 @@ def profile_cli(which, n, collect_history, device="cuda", particles=200, config=
     for cmd in commands[:CHUNK]:
         sim.step(cmd)
     torch.cuda.synchronize()
+    reads0 = sim.reads
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for cmd in commands[CHUNK:]:
@@ -215,6 +211,7 @@ def profile_cli(which, n, collect_history, device="cuda", particles=200, config=
         wall = time.perf_counter() - t0
     out = summarise(prof, wall, n)
     out.update(path="cli", world=world_file, collect_history=collect_history, config=config and str(config),
+               reads_per_frame=(sim.reads - reads0) / n,
                peak_memory_bytes=torch.cuda.max_memory_allocated(),
                shape=dict(P=particles, K0=sim.phd_cfg.max_components, M=sim.max_meas,
                           B=sim.phd_cfg.beam_width, C=sim.phd_cfg.beam_candidates))

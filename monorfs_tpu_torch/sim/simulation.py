@@ -41,6 +41,7 @@ from ..io.recording import Recording
 from ..io.world import World
 from ..models import get as get_model
 from ..slam import loopy, phd
+from ..spans import nested
 from . import vehicle as vehicle_mod
 
 DIRAC_COV = 0.001 * np.eye(3)
@@ -192,9 +193,15 @@ class Simulation:
         self.tags = []
         self.time = 0.0
         self.frame_index = 0
+        self.reads = 0  # device-to-host reads of the frame path (_host), each a wait for the device
 
     def _tensor(self, x):
         return torch.as_tensor(np.asarray(x, np.float64), dtype=self.dtype, device=self.device)
+
+    def _host(self, x):
+        """x as a numpy array on the host, counted in `reads`."""
+        self.reads += 1
+        return x.detach().cpu().numpy()
 
     # ------------------------------------------------------------------
 
@@ -324,7 +331,7 @@ class Simulation:
         """StartSlam / StartMapping particle collapse (PHDNavigator.cs:214-236):
         every particle resets to the reference pose and the best particle's
         map."""
-        best = int(self.nstate.best)
+        best = int(self._host(self.nstate.best))
         p = self.particles
         lw = self.nstate.logweight
         self.nstate = phd.PHDState(
@@ -365,11 +372,10 @@ class Simulation:
                 draws["motion_normals"], draws["resample_u"], true_pose=self.vstate.pose,
             )
         elif self.algorithm == "isam2":
-            host = lambda x: x.detach().cpu().numpy()  # noqa: E731
-            live = host(mask)
-            self.isam2.predict(host(noisy), host(self.vstate.pose))
-            zs = host(z)[live][:, : self.model.meas_dim]
-            true_labels = host(labels)[live] if labels is not None else None
+            live = self._host(mask)
+            self.isam2.predict(self._host(noisy), self._host(self.vstate.pose))
+            zs = self._host(z)[live][:, : self.model.meas_dim]
+            true_labels = self._host(labels)[live] if labels is not None else None
             self.isam2.slam_update(list(zs), true_labels)
         elif self.mode_mapping:
             self.nav_pose = self.vstate.pose
@@ -384,31 +390,42 @@ class Simulation:
     def _record(self, t, noisy, z, mask, labels, visible, detected):
         """Append this frame to the host-side histories: the true pose, the
         reading, the measurements, and for `phd` the best particle's map and
-        every pose. It reads device tensors, so it waits for the frame."""
-        host = lambda x: x.detach().cpu().numpy()  # noqa: E731
-        self.waypoints.append((t, host(self.vstate.pose).copy()))
-        self.way_odometry.append((t, host(noisy).copy()))
-        live = host(mask)
-        zs = host(z)[live]
-        self.way_measurements.append((t, [zi[: self.model.meas_dim] for zi in zs]))
-        if labels is not None:
-            self.way_sightings.append((t, [int(l) for l in host(labels)[live]]))
+        every pose. Its reads of device tensors come first, in the span
+        `record.read`, whose host time is the wait for the frame's device work
+        and the copies."""
+        host = self._host
+        replayed = self.replay is not None
+        with nested("record.read"):
+            pose, odo, live, zs = host(self.vstate.pose), host(noisy), host(mask), host(z)
+            lab = host(labels) if labels is not None else None
+            if not replayed:
+                lms, vis, det = host(self.vstate.landmarks), host(visible), host(detected)
+            if self.algorithm == "phd":
+                best = int(host(self.nstate.best))
+                leaves = host(torch.stack([leaf[best] for leaf in self.nstate.maps]))  # [10, K]
+                poses, parents = host(self.nstate.pose), host(self.nstate.ancestor)
+            elif self.algorithm != "isam2":
+                nav = host(self.nav_pose)
 
-        if self.replay is not None:
+        self.waypoints.append((t, pose.copy()))
+        self.way_odometry.append((t, odo.copy()))
+        zs = zs[live]
+        self.way_measurements.append((t, [zi[: self.model.meas_dim] for zi in zs]))
+        if lab is not None:
+            self.way_sightings.append((t, [int(l) for l in lab[live]]))
+
+        if replayed:
             # carry the recorded groundtruth visibility through
             i = self.frame_index
             self.way_vismaps.append(
                 self.replay.vismaps[i] if i < len(self.replay.vismaps) else (t, [])
             )
         else:
-            lms, vis, det = host(self.vstate.landmarks), host(visible), host(detected)
             self.way_vismaps.append(
                 (t, [(1.0 if det[i] else 0.0, lms[i], DIRAC_COV) for i in range(len(lms)) if vis[i]])
             )
 
         if self.algorithm == "phd":
-            best = int(self.nstate.best)
-            leaves = host(torch.stack([leaf[best] for leaf in self.nstate.maps]))  # [10, K]
             logw = leaves[9]
             mean_b = leaves[0:3].T
             cxx, cxy, cxz, cyy, cyz, czz = leaves[3:9]
@@ -418,18 +435,14 @@ class Simulation:
                 for i in np.nonzero(logw > mixture.ALIVE_THRESHOLD)[0]
             ]
             self.way_maps.append((t, comps))
-            self.frames.append({
-                "poses": host(self.nstate.pose).copy(),
-                "best": best,
-                "parents": host(self.nstate.ancestor).copy(),
-            })
+            self.frames.append({"poses": poses.copy(), "best": best, "parents": parents.copy()})
         elif self.algorithm == "isam2":
             means, covs = self.isam2.map_estimate
             self.way_maps.append((t, [(1.0, means[i], covs[i]) for i in range(len(means))]))
             self.frames.append({"poses": self.isam2.pose[None, :].copy(), "best": 0})
         else:
             self.way_maps.append((t, []))
-            self.frames.append({"poses": host(self.nav_pose)[None, :].copy(), "best": 0})
+            self.frames.append({"poses": nav[None, :].copy(), "best": 0})
 
     def run(self, progress=False, checkpoint_file=None, abort_flag=None):
         """Run all frames. With `checkpoint_file` the full recording is

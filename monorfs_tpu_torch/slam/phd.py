@@ -38,6 +38,7 @@ from .. import resolve_device
 from ..gm import gaussian, mixture, smallmat
 from ..gm.gaussian import sqrt_cov
 from ..gm.mixture import ALIVE_THRESHOLD, DEAD, GM, SGM
+from ..spans import nested
 from . import association, beam_kernel, fused_kernel
 from .assignment import first_argmax
 
@@ -312,44 +313,47 @@ def weight_inputs(model, cfg, params, pose, predicted: SGM, corrected: SGM, z, z
 
     Returns (rest [P], base [P], opt_delta [P, M, C+1], word_k, bit_k)."""
     mp = model.params
-    jidx, jvalid = mixture.best_map_indices(corrected.logw, cfg.estimate_cap)  # [P, E]
-    mfeat = torch.stack(corrected.mean_list(), dim=-1)
-    mfeat = torch.where(torch.isfinite(mfeat), mfeat, torch.zeros_like(mfeat))
-    jm = torch.gather(mfeat, 1, jidx[..., None].expand(-1, -1, 3))
-    jmeans = [jm[..., i] for i in range(3)]
+    with nested("phd.weight_inputs.map_estimate"):
+        jidx, jvalid = mixture.best_map_indices(corrected.logw, cfg.estimate_cap)  # [P, E]
+        mfeat = torch.stack(corrected.mean_list(), dim=-1)
+        mfeat = torch.where(torch.isfinite(mfeat), mfeat, torch.zeros_like(mfeat))
+        jm = torch.gather(mfeat, 1, jidx[..., None].expand(-1, -1, 3))
+        jmeans = [jm[..., i] for i in range(3)]
 
     def mixture_loglike(gm):
         lv = torch.clamp(mixture.log_evaluate_many_soa(gm, jmeans), min=LOG_EVAL_FLOOR)
         return torch.sum(torch.where(jvalid, lv, torch.zeros_like(lv)), dim=-1)
 
-    rest = (mixture_loglike(predicted) - mixture.expected_size(predicted)) - (
-        mixture_loglike(corrected) - mixture.expected_size(corrected)
-    )
+    with nested("phd.weight_inputs.mixture_ll"):
+        rest = (mixture_loglike(predicted) - mixture.expected_size(predicted)) - (
+            mixture_loglike(corrected) - mixture.expected_size(corrected)
+        )
 
-    # valid measurements first, capped at the beam length
-    order = live_first(z_mask, cfg.beam_meas_cap or z.shape[0])
-    zc = torch.where(torch.isfinite(z), z, torch.zeros_like(z))[order]
-    zc_mask = z_mask[order]
+    with nested("phd.weight_inputs.assoc"):
+        # valid measurements first, capped at the beam length
+        order = live_first(z_mask, cfg.beam_meas_cap or z.shape[0])
+        zc = torch.where(torch.isfinite(z), z, torch.zeros_like(z))[order]
+        zc_mask = z_mask[order]
 
-    # gated association log-likelihood [P, E, M] (PHDNavigator.cs:415-453)
-    mu = model.measure_soa(mp, pose, jmeans)
-    pdv = model.fuzzy_visible_soa_fn(params.depth_map)(mp, mu, params.visibility_ramp) * params.pd
-    pdv = torch.clamp(pdv, 1e-30, 1.0 - 1e-7)
-    log_pd, log_miss = torch.log(pdv), torch.log1p(-pdv)
-    r = smallmat.from_tensor(params.meas_cov)
-    det_r = smallmat.det(r)
-    r_inv = smallmat.inv(r, det_r)
-    logmult = smallmat.log_multiplier(r, det_r)
-    diffz = [zc[:, i][None, None, :] - mi[:, :, None] for i, mi in enumerate(mu)]
-    d2 = smallmat.quadform(diffz, r_inv)
-    ll = log_pd[..., None] + logmult - 0.5 * d2
-    neg = torch.full_like(ll, association.NEG)
-    ll = torch.where(d2 < 25.0, ll, neg)  # Mahalanobis gate 5
-    ll = torch.where(zc_mask[None, None, :], ll, neg)
-    base, od, wk, bk, _ = association.prepare_options(
-        ll, log_miss, torch.log(params.clutter_density), jvalid, zc_mask,
-        cfg.beam_candidates,
-    )
+        # gated association log-likelihood [P, E, M] (PHDNavigator.cs:415-453)
+        mu = model.measure_soa(mp, pose, jmeans)
+        pdv = model.fuzzy_visible_soa_fn(params.depth_map)(mp, mu, params.visibility_ramp) * params.pd
+        pdv = torch.clamp(pdv, 1e-30, 1.0 - 1e-7)
+        log_pd, log_miss = torch.log(pdv), torch.log1p(-pdv)
+        r = smallmat.from_tensor(params.meas_cov)
+        det_r = smallmat.det(r)
+        r_inv = smallmat.inv(r, det_r)
+        logmult = smallmat.log_multiplier(r, det_r)
+        diffz = [zc[:, i][None, None, :] - mi[:, :, None] for i, mi in enumerate(mu)]
+        d2 = smallmat.quadform(diffz, r_inv)
+        ll = log_pd[..., None] + logmult - 0.5 * d2
+        neg = torch.full_like(ll, association.NEG)
+        ll = torch.where(d2 < 25.0, ll, neg)  # Mahalanobis gate 5
+        ll = torch.where(zc_mask[None, None, :], ll, neg)
+        base, od, wk, bk, _ = association.prepare_options(
+            ll, log_miss, torch.log(params.clutter_density), jvalid, zc_mask,
+            cfg.beam_candidates,
+        )
     return rest, base, od, wk, bk
 
 
