@@ -29,10 +29,20 @@ Phases, one line each; any failure exits non-zero:
      bench shape and the command line's capacity (K0=600, the live design):
      PRM3D M=48 with the cap loose and binding, Linear2D M=33, Linear1D
      M=20; and PRM3D at K0=600 M=180, K0=663 M=48 and K0=1000 M=64, which no
-     block layout holds (the parent raised);
+     block layout holds (the parent raised); then the mixture likelihood
+     kernel (`mixture-check`, `mixture-shape`) against mixture_rest_plain
+     to MIXTURE_RTOL of each particle's scale: on the edge cases of
+     kernel_cases.MIXTURE_EDGES (no live slot, no valid row, singular
+     covariances, K not a multiple of 32, more live components than a tile,
+     E=1, garbage in dead slots), at chap3's shape with strided and
+     contiguous MAP means (equal) and twice (equal), the wrapper
+     raising on float64; then at MIXTURE_SHAPES (chap3 at 2000 and 800
+     particles, the command line's K0=600, the bench's K0=128 at 200 and
+     100,000 particles) with its device time, wall time, plain time and
+     bound;
   4. the bench path: run_benchmark at the bench.py config (200 particles,
-     K=128, 48 -> 24 measurement slots, beam 32 x 6, 300 frames), with both
-     kernels launched once per frame and ATE below 0.03;
+     K=128, 48 -> 24 measurement slots, beam 32 x 6, 300 frames), with the
+     three kernels launched once per frame and ATE below 0.03;
   5. no host synchronisation: 10 frames of the bench path after warm-up under
      torch.cuda.set_sync_debug_mode("warn"), none from the port's code;
   6. the command-line path at full width, through cli.main and then
@@ -153,7 +163,10 @@ another checkout (DIR/monorfs_tpu_torch, built by its own _build), times
 its kernels on the same inputs, in turns with this checkout's
 (parent, this, this, parent), and holds the fused kernel's PRM3D results
 to the parent's bit for bit at the bench shape's states. --phases runs a
-subset (kernels = 1's checks, 2 and 3).
+subset (kernels = 1's checks, 2, 3 and the mixture likelihoods). Every
+path's launch counts hold the mixture likelihood kernel to once a float32
+SLAM frame, as the beam, and to none where no particle is weighed (mapping
+only, float64, the smoother, the graph backend).
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -187,8 +200,8 @@ from monorfs_tpu_torch.gm.mixture import DEAD, SGM
 from monorfs_tpu_torch.io import Recording, World, parse_commands
 from monorfs_tpu_torch.io import avi
 from monorfs_tpu_torch.io.avi import jpeg_size, read_mjpeg
-from monorfs_tpu_torch.kernel_bounds import beam_bound, fused_bound
-from monorfs_tpu_torch.kernel_cases import beam_ties, fused_state
+from monorfs_tpu_torch.kernel_bounds import beam_bound, fused_bound, mixture_bound
+from monorfs_tpu_torch.kernel_cases import MIXTURE_EDGES, beam_ties, fused_state, mixture_case
 from monorfs_tpu_torch.models import PRM3D
 from monorfs_tpu_torch.models import get as get_model
 from monorfs_tpu_torch.render import axes
@@ -198,7 +211,8 @@ from monorfs_tpu_torch.profile_step import (count_syncs, host_syncs, in_package,
 from monorfs_tpu_torch.parallel import chain, dist_ba, make_mesh, make_sharded_step, multihost, shard_state
 from monorfs_tpu_torch.sim import vehicle as vehicle_mod
 from monorfs_tpu_torch.sim.simulation import Simulation
-from monorfs_tpu_torch.slam import association, beam_kernel, fused_kernel, graph, loopy
+from monorfs_tpu_torch.gm import mixture
+from monorfs_tpu_torch.slam import association, beam_kernel, fused_kernel, graph, loopy, mixture_kernel
 from monorfs_tpu_torch.slam.isam2_scan import build_isam2_scan_runner, scan_draws
 from monorfs_tpu_torch.slam.isam2_scan_da import build_mahalanobis_scan
 from monorfs_tpu_torch.slam import phd
@@ -208,6 +222,7 @@ ATE_LIMIT = 0.03  # ~3x the JAX package's 0.0108 on this config
 BENCH_FRAMES = 300  # the whole of mov3d.in
 BEAM_KERNEL = "beam_scan"  # substring of every beam kernel's name
 FUSED_KERNEL = "fused_stage_kernel"
+MIXTURE_KERNEL = "mixture_ll_kernel"
 
 
 def say(phase, **kv):
@@ -444,7 +459,7 @@ def beam_wide(dev):
     out, _ = bench_core.run_frames(runner, carry, cmds, draws)
     torch.cuda.synchronize()
     launches = read_launches()
-    if launches != {"beam_scan": WIDE_FRAMES, "fused_stage": WIDE_FRAMES}:
+    if launches != {"beam_scan": WIDE_FRAMES, "fused_stage": WIDE_FRAMES, "mixture_ll": WIDE_FRAMES}:
         raise AssertionError(f"B={b} steps: launches {launches}")
     if not torch.isfinite(out.nstate.logweight).all():
         raise AssertionError(f"B={b} steps: log-weights not finite")
@@ -586,6 +601,8 @@ LAYOUT_FUSED_M = (1, 20, 24, 33, 48, 64, 180, 188)
 LAYOUT_BEAM = [(m, c, b, w) for m in (24, 48, 188) for c in (6, 7, 8)
                for b in (1, 32, 33, 64, 200, 910, 911, 1000, 1821, 3641, 4768, 4769, 7281, 7282)
                for w in (1, 2, 4)]
+LAYOUT_MIXTURE = [(k, e) for k in (1, 37, 152, 548, 648, 1064, 2047, 2048, 2500, 10**5)
+                  for e in (1, 48, 128, 4096)]
 
 
 def layout_check():
@@ -600,10 +617,14 @@ def layout_check():
         got, want = beam_kernel.layout_bytes(m, c, b, w), beam_kernel.smem_bytes(m, c, b, w)
         if got != want:
             bad.append(("beam", m, c, b, w, got, want))
+    for k, e in LAYOUT_MIXTURE:
+        got, want = mixture_kernel.layout_bytes(k, e), mixture_kernel.smem_bytes(k, e)
+        if got != want:
+            bad.append(("mixture", k, e, got, want))
     if bad:
         raise AssertionError(f"Python layout copies differ from csrc/: {bad[:10]}")
     say("layout-check", fused_shapes=len(LAYOUT_FUSED_K0) * len(LAYOUT_FUSED_M), beam_shapes=len(LAYOUT_BEAM),
-        equal=True, fused_live_smem_bytes=fused_kernel.layout_bytes(600, 48),
+        mixture_shapes=len(LAYOUT_MIXTURE), equal=True, fused_live_smem_bytes=fused_kernel.layout_bytes(600, 48),
         beam_block_k_B910_B911_C8=[beam_kernel.block_k(910 * 9), beam_kernel.block_k(911 * 9)],
         beam_takes_B4768_B4769_C8_W4=[beam_kernel.takes(24, 8, 4768, 4), beam_kernel.takes(24, 8, 4769, 4)])
 
@@ -704,14 +725,143 @@ def fused_phase(dev, parent):
     return row
 
 
+# ---- phase 3b: the mixture likelihoods -------------------------------------------
+
+# The shapes the mixture likelihood kernel serves, each with the live
+# components a filter's maps hold there: name, P, KP, KC, E, live (predicted,
+# corrected), timing reps. chap3: chap3-default.cfg (K0 500, 48 slots, MAP
+# cap 128), also with every slot live; cli: the command line's default PHDConfig
+# (K0 600); bench and flagship: bench.py's (K0 128, 24 slots, MAP cap 48) at
+# 200 and at bench_flagship's 100,000 particles.
+MIXTURE_SHAPES = [
+    ("chap3-P2000-K548-500-E128", 2000, 548, 500, 128, 330, 280, 20),
+    ("chap3-P2000-K548-500-E128-all-live", 2000, 548, 500, 128, 548, 500, 20),
+    ("chap3-P800-K548-500-E128", 800, 548, 500, 128, 330, 280, 20),
+    ("cli-P200-K648-600-E128", 200, 648, 600, 128, 400, 340, 20),
+    ("bench-P200-K152-128-E48", 200, 152, 128, 48, 100, 90, 20),
+    ("flagship-P100000-K152-128-E48", 100_000, 152, 128, 48, 100, 90, 5),
+]
+MIXTURE_PLAIN_CHUNK = 20_000  # particles a plain call takes at once ([P, E, K] temporaries)
+# The kernel and the plain version give every pair the same score bit for bit
+# (csrc/mixture_ll.cu) and add the same terms in other orders: a row's exp
+# terms, the valid rows' log-likelihoods and each map's weights. Each order
+# moves a sum by a few of its own ulps; 64 float32 ulps (eps 2^-23) of the
+# particle's scale, the sum of the magnitudes of every term that enters its
+# rest (|row log-likelihoods| of both maps and both expected sizes), bounds
+# that with room, and a row or a component dropped or counted twice moves it
+# by far more.
+MIXTURE_RTOL = 64 * 2.0 ** -23
+
+
+MIXTURE_DRAWN = 10_000  # particles drawn on the host; a larger P repeats them on the card
+
+
+def mixture_inputs(seed, p, kp, kc, e, dev, views=True, **kw):
+    """mixture_case on the card: (predicted, corrected, jmeans, jvalid) in
+    float32; jmeans as views of one [P, E, 3] tensor (the weight inputs'
+    gather) or, with views=False, three contiguous [P, E] tensors. Past
+    MIXTURE_DRAWN particles the drawn ones repeat (drawing 100,000 with
+    numpy on one host core takes tens of seconds)."""
+    pred, cor, jm, jv = mixture_case(seed, min(p, MIXTURE_DRAWN), kp, kc, e, **kw)
+    reps = -(-p // MIXTURE_DRAWN)
+
+    def card(x, dtype, axis):  # the particle axis repeated up to p
+        x = torch.as_tensor(np.ascontiguousarray(x), dtype=dtype, device=dev)
+        return torch.cat([x] * reps, dim=axis).narrow(axis, 0, p).contiguous()
+
+    as_sgm = lambda leaves: SGM(*card(leaves, torch.float32, 1).unbind(0))  # noqa: E731
+    jm = card(np.moveaxis(jm, 0, -1), torch.float32, 0)  # [P, E, 3]
+    jmeans = [jm[..., i] for i in range(3)] if views else [jm[..., i].contiguous() for i in range(3)]
+    return as_sgm(pred), as_sgm(cor), jmeans, card(jv, torch.bool, 0)
+
+
+def mixture_plain(pred, cor, jmeans, jvalid, scale=False):
+    """mixture_rest_plain over MIXTURE_PLAIN_CHUNK particles at a time; with
+    scale, also each particle's scale (MIXTURE_RTOL)."""
+    rest, scales = [], []
+    for a in range(0, jvalid.shape[0], MIXTURE_PLAIN_CHUNK):
+        cut = slice(a, a + MIXTURE_PLAIN_CHUNK)
+        args = (SGM(*[x[cut] for x in pred]), SGM(*[x[cut] for x in cor]), [x[cut] for x in jmeans], jvalid[cut])
+        rest.append(mixture_kernel.mixture_rest_plain(*args))
+        if scale:
+            s = 0.0
+            for gm in args[:2]:
+                lv = torch.clamp(mixture.log_evaluate_many_soa(gm, args[2]), min=mixture_kernel.LOG_EVAL_FLOOR)
+                s = s + torch.where(args[3], lv.abs(), torch.zeros_like(lv)).sum(-1) + mixture.expected_size(gm)
+            scales.append(s)
+    return (torch.cat(rest), torch.cat(scales)) if scale else torch.cat(rest)
+
+
+def mixture_check(name, args):
+    """The kernel against the plain version on args; returns the largest
+    error over the particle's scale (raises past MIXTURE_RTOL)."""
+    out = mixture_kernel.mixture_rest(*args)
+    ref, scale = mixture_plain(*args, scale=True)
+    if out.is_cuda:
+        torch.cuda.synchronize()
+    rel = ((out - ref).abs() / scale.clamp(min=1.0)).max().item() if out.numel() else 0.0
+    if not (torch.isfinite(out).all() and rel <= MIXTURE_RTOL):
+        raise AssertionError(f"mixture kernel differs from plain on {name}: {rel} of the scale "
+                             f"(limit {MIXTURE_RTOL})")
+    return rel
+
+
+def mixture_phase(dev):
+    """The mixture likelihood kernel against mixture_rest_plain: the edge
+    cases (kernel_cases.MIXTURE_EDGES; more live components than a tile
+    walks two tiles), contiguous and strided MAP means giving equal
+    results, two launches equal; then at each of MIXTURE_SHAPES its device
+    time, the wrapper's wall time, the plain version's time and the bound.
+    The wrapper raises on float64. Returns the kernel table's row."""
+    edges = {}
+    for i, (name, (p, kp, kc, e, kw)) in enumerate(MIXTURE_EDGES.items()):
+        edges[name] = mixture_check(name, mixture_inputs(80 + i, p, kp, kc, e, dev, views=False, **kw))
+    strided = mixture_inputs(90, 800, 548, 500, 128, dev, live_p=330, live_c=280)
+    contiguous = (*strided[:2], [x.contiguous() for x in strided[2]], strided[3])
+    once = mixture_kernel.mixture_rest(*strided)
+    if not (torch.equal(once, mixture_kernel.mixture_rest(*contiguous))
+            and torch.equal(once, mixture_kernel.mixture_rest(*strided))):
+        raise AssertionError("the mixture kernel's result moved with the MAP means' strides or between launches")
+    try:
+        mixture_kernel.mixture_rest(*[SGM(*[x.double() for x in m]) for m in strided[:2]],
+                                    [x.double() for x in strided[2]], strided[3])
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("the mixture kernel's wrapper took float64 maps")
+    say("mixture-check", max_rel_err=edges, rtol=MIXTURE_RTOL, equal_strided_contiguous=True,
+        equal_twice=True, float64_raises=True)
+    rows = []
+    for i, (name, p, kp, kc, e, live_p, live_c, reps) in enumerate(MIXTURE_SHAPES):
+        args = mixture_inputs(100 + i, p, kp, kc, e, dev, live_p=live_p, live_c=live_c)
+        rel = mixture_check(name, args)
+        ms = kernel_ms(lambda: mixture_kernel.mixture_rest(*args), reps, MIXTURE_KERNEL)
+        bms, by = mixture_bound(*args)
+        row = dict(case=name, shape=dict(P=p, KP=kp, KC=kc, E=e, live=[live_p, live_c],
+                                         valid_rows_mean=args[3].sum(1).double().mean().item()),
+                   max_rel_err=rel, ms=ms, wrapper_ms=wall_ms(lambda: mixture_kernel.mixture_rest(*args), reps),
+                   plain_ms=cuda_ms(lambda: mixture_plain(*args), 2), bound_ms=bms, bound_by=by,
+                   smem_bytes=mixture_kernel.smem_bytes(max(kp, kc), e))
+        say("mixture-shape", **row)
+        rows.append(row)
+    head = rows[0]
+    return dict(name="mixture_ll", route="cuda", source="monorfs_tpu_torch/csrc/mixture_ll.cu",
+                replaces="none (XLA in the JAX package: monorfs_tpu/slam/phd.py's weight inputs)",
+                max_abs_err=None, max_rel_err=max([r["max_rel_err"] for r in rows] + list(edges.values())),
+                ms=head["ms"], wrapper_ms=head["wrapper_ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+                bound_by=head["bound_by"], library_ms=None, shapes=rows)
+
+
 def reset_launches():
     beam_kernel.beam_scan_batch.launches = 0
     fused_kernel.fused_stage.launches = 0
+    mixture_kernel.mixture_rest.launches = 0
 
 
 def read_launches():
     return {"beam_scan": beam_kernel.beam_scan_batch.launches,
-            "fused_stage": fused_kernel.fused_stage.launches}
+            "fused_stage": fused_kernel.fused_stage.launches,
+            "mixture_ll": mixture_kernel.mixture_rest.launches}
 
 
 def bench_phase(dev, kernels):
@@ -773,7 +923,9 @@ def run_cli(name, argv, frames, per_frame, ate_limit, ospa_limit, record):
         cli.main(argv + ["-r", str(record)])
     seconds = time.perf_counter() - t0
     launches = read_launches()
-    want = {"fused_stage": per_frame[0] * frames, "beam_scan": per_frame[1] * frames}
+    # the mixture likelihoods run once a SLAM frame, as the beam does
+    want = {"fused_stage": per_frame[0] * frames, "beam_scan": per_frame[1] * frames,
+            "mixture_ll": per_frame[1] * frames}
     if launches != want:
         raise AssertionError(f"{name}: launches {launches}, expected {want}")
     with contextlib.redirect_stdout(out):
@@ -794,8 +946,8 @@ def run_cli(name, argv, frames, per_frame, ate_limit, ospa_limit, record):
                                 "none: float64 takes the XLA-semantics functions and the plain beam"
                                 if per_frame == (0, 0) else
                                 "fused only: mapping-only weighs no particle" if per_frame == (1, 0) else
-                                "beam only: the Kinect model's depth occlusion keeps the fused kernel off"
-                                if per_frame == (0, 1) else "fused and beam"))
+                                "mixture likelihoods and beam: the Kinect model's depth occlusion keeps the "
+                                "fused kernel off" if per_frame == (0, 1) else "fused, mixture likelihoods and beam"))
     say("cli-run", **row)
     return row, rec, launches
 
@@ -806,7 +958,7 @@ def cli_phase(dev, kernels, tmp):
     error limits and the odometry replay against the recorded odometry
     integrated."""
     assets = pathlib.Path(__file__).resolve().parent / "assets"
-    total = {"beam_scan": 0, "fused_stage": 0}
+    total = {"beam_scan": 0, "fused_stage": 0, "mixture_ll": 0}
     for name, files, flags, frames, per_frame, ate_limit, ospa_limit in CLI_RUNS:
         argv = ["-f", str(assets / files[0]), "-c", str(assets / files[1])] + flags
         _, _, launches = run_cli(name, argv, frames, per_frame, ate_limit, ospa_limit,
@@ -944,7 +1096,7 @@ def graph_phase(dev, kernels, tmp):
     graph.assert_full_precision()
     assets = pathlib.Path(__file__).resolve().parent / "assets"
     world3d = ["-f", str(assets / "sim3d.world"), "-c", str(assets / "mov3d.in")]
-    total = {"beam_scan": 0, "fused_stage": 0}
+    total = {"beam_scan": 0, "fused_stage": 0, "mixture_ll": 0}
 
     def run(name, argv, frames, limits):
         row, rec, launches = run_cli(name, argv, frames, (0, 0), limits[0], limits[1], tmp / f"{name}.zip")
@@ -1117,7 +1269,9 @@ def run_loopy_cli(name, argv, limits, record, float32=True):
     text = out.getvalue()
     ate, ospa = printed_number(text, "ATE loc RMSE"), printed_number(text, "final OSPA")
     frames = len(Recording.load(record).trajectory)
-    if not (all(launches.values()) if float32 else not any(launches.values())):
+    # the smoother's steps are mapping-only: no weight stage, so no mixture likelihoods
+    smoother = (launches["beam_scan"], launches["fused_stage"])
+    if launches["mixture_ll"] or not (all(smoother) if float32 else not any(smoother)):
         raise AssertionError(f"{name}: launches {launches} ({'float32' if float32 else 'float64'})")
     if not (np.isfinite(ate) and ate <= limits[0] and np.isfinite(ospa) and ospa <= limits[1]):
         raise AssertionError(f"{name}: ATE {ate} (limit {limits[0]}), OSPA {ospa} (limit {limits[1]})")
@@ -1143,7 +1297,7 @@ def loopy_phase(dev, kernels, tmp):
         cli.main(["-f", str(tmp / "s2-phd.zip"), "-i", "record", "-a", "odometry",
                   "-r", str(tmp / "s2-odo.zip")] + cfg)
     replay = ["-f", str(tmp / "s2-odo.zip"), "-i", "record", "-a", "loopy"] + cfg
-    total = {"beam_scan": 0, "fused_stage": 0}
+    total = {"beam_scan": 0, "fused_stage": 0, "mixture_ll": 0}
 
     def tally(row):
         for k, n in row["launches"].items():
@@ -1189,8 +1343,8 @@ def loopy_phase(dev, kernels, tmp):
     per_node, where = count_syncs(nav.sweep, 10)
     say("loopy-syncs", nodes=10, syncs_per_node=per_node, where=where,
         note="a refit sweep over 10 nodes, its two objective reads included")
-    if not all(total.values()):
-        raise AssertionError(f"the smoother launched a kernel no time: {total}")
+    if not (total["beam_scan"] and total["fused_stage"]) or total["mixture_ll"]:
+        raise AssertionError(f"the smoother launched a kernel no time, or the mixture likelihoods: {total}")
     for k in kernels:
         k["launches"] = k.get("launches", 0) + total[k["name"]]
         k.setdefault("launches_by_path", {})["loopy"] = total[k["name"]]
@@ -1267,7 +1421,7 @@ def kinect_phase(dev, kernels, tmp):
         decoder="native librfsio (build/native)" if native.available() else "pure-Python fallback",
         shapes={k: list(getattr(seq, k).shape) for k in ("time", "depth", "gray")},
         dtypes={k: str(getattr(seq, k).dtype) for k in ("time", "depth", "gray")})
-    total = {"beam_scan": 0, "fused_stage": 0}
+    total = {"beam_scan": 0, "fused_stage": 0, "mixture_ll": 0}
 
     def counted(fn):
         reset_launches()
@@ -1299,8 +1453,9 @@ def kinect_phase(dev, kernels, tmp):
     peak = torch.cuda.max_memory_allocated(dev)
     row = k9["phd"]
     frames = row["frames"]
-    if launches != {"beam_scan": frames, "fused_stage": 0}:
-        raise AssertionError(f"k9 phd: launches {launches} over {frames} frames (beam once a frame, fused never)")
+    if launches != {"beam_scan": frames, "fused_stage": 0, "mixture_ll": frames}:
+        raise AssertionError(f"k9 phd: launches {launches} over {frames} frames (beam and mixture likelihoods "
+                             "once a frame, fused never)")
     if not (row["ate_loc_rmse"] < K9_PHD[0] and row.get("ospa_vs_refmap", 1.0) < K9_PHD[1]):
         raise AssertionError(f"k9 phd: {row}, limits {K9_PHD}")
     again, syncs = None, None
@@ -1462,12 +1617,12 @@ def grid_phase(dev, kernels, tmp):
     stats = json.loads((out / "chap3-s1.stats.json").read_text())
     phd, odo = legs
     n = GRID_S1_FRAMES
-    if phd["launches"] != {"beam_scan": n, "fused_stage": n} or any(odo["launches"].values()):
+    if phd["launches"] != {"beam_scan": n, "fused_stage": n, "mixture_ll": n} or any(odo["launches"].values()):
         raise AssertionError(f"run_gpu_grid chap3-s1: launches {legs} (phd {n} of each, odometry none)")
     row = stats["phd"]
     if not (row["ate_loc_rmse"] < GRID_S1[0] and row["final_ospa"] < GRID_S1[1]):
         raise AssertionError(f"run_gpu_grid chap3-s1 phd: {row}, limits {GRID_S1}")
-    total = {k: phd["launches"][k] for k in ("beam_scan", "fused_stage")}
+    total = dict(phd["launches"])
     say("grid-chap3-s1", particles=GRID_S1_PARTICLES, frames=n, phd=row, odometry=stats["odometry"],
         ate_limit=GRID_S1[0], ospa_limit=GRID_S1[1], run_seconds=phd["seconds"],
         ms_per_frame=phd["seconds"] * 1e3 / n, odometry_seconds=odo["seconds"], legs=legs,
@@ -1480,7 +1635,7 @@ def grid_phase(dev, kernels, tmp):
     launches = read_launches()
     rows = json.loads((out / "throughput.stats.json").read_text())
     frames = sum(2 * rows[str(p)]["frames"] for p in GRID_THROUGHPUT)  # a warm-up and a timed run each
-    if launches != {"beam_scan": frames, "fused_stage": frames}:
+    if launches != {"beam_scan": frames, "fused_stage": frames, "mixture_ll": frames}:
         raise AssertionError(f"throughput: launches {launches} over {frames} frames")
     for p in GRID_THROUGHPUT:
         r = rows[str(p)]
@@ -1493,7 +1648,7 @@ def grid_phase(dev, kernels, tmp):
     reset_launches()
     r = bench_scaling.run(SCALING_P, 50, dev)
     launches = read_launches()
-    if launches != {"beam_scan": 2 * r["frames"], "fused_stage": 2 * r["frames"]}:
+    if launches != {"beam_scan": 2 * r["frames"], "fused_stage": 2 * r["frames"], "mixture_ll": 2 * r["frames"]}:
         raise AssertionError(f"bench_scaling at {SCALING_P}: launches {launches} over 2 x {r['frames']} frames")
     if not r["ate_rmse_loc"] < ATE_LIMIT:
         raise AssertionError(f"bench_scaling at {SCALING_P}: {r}, ATE limit {ATE_LIMIT}")
@@ -1575,7 +1730,7 @@ def parallel_step(dev, mesh):
         sharded_s=sharded_s, launches=launches, comm={k: list(v) for k, v in mesh.comm.items()})
     if not (pose_err <= 1e-5 and lw_err <= 2e-3 and same_best and same_anc):
         raise AssertionError("the sharded step parts from the single-card step")
-    if launches != {"beam_scan": PARALLEL_FRAMES, "fused_stage": PARALLEL_FRAMES}:
+    if launches != {"beam_scan": PARALLEL_FRAMES, "fused_stage": PARALLEL_FRAMES, "mixture_ll": PARALLEL_FRAMES}:
         raise AssertionError(f"sharded step: launches {launches} over {PARALLEL_FRAMES} frames")
     return launches
 
@@ -1610,8 +1765,9 @@ def parallel_chain(dev, mesh):
         comm={k: list(v) for k, v in mesh.comm.items()})
     if not all(e <= 1e-5 for e in errs.values()):
         raise AssertionError(f"the sharded sweep parts from the sequential sweep: {errs}")
-    if launches["fused_stage"] < PARALLEL_NODES:
-        raise AssertionError(f"sharded sweep: {launches}, the cavity passes launch the fused kernel a frame")
+    if launches["fused_stage"] < PARALLEL_NODES or launches["mixture_ll"]:
+        raise AssertionError(f"sharded sweep: {launches}, the cavity passes launch the fused kernel a frame "
+                             "and weigh no particle")
     return launches
 
 
@@ -1760,7 +1916,7 @@ def drive_manipulator(dev, tmp):
             renders += 1
     seconds = time.perf_counter() - t0
     launches = read_launches()
-    want = {"fused_stage": loop.frame, "beam_scan": slam_frames}
+    want = {"fused_stage": loop.frame, "beam_scan": slam_frames, "mixture_ll": slam_frames}
     if launches != want or paused_ticks != 1 or loop.frame != len(commands):
         raise AssertionError(f"manipulator: launches {launches}, expected {want} (frames {loop.frame}, "
                              f"SLAM {slam_frames}, paused ticks {paused_ticks})")
@@ -1930,6 +2086,7 @@ def main():
         kernels.append(beam_phase(dev, parent))
         kernels[-1]["shapes"].append(beam_wide(dev))
         kernels.append(fused_phase(dev, parent))
+        kernels.append(mixture_phase(dev))
     if "loopy" in phases:  # the smoother's kernel shapes, beside the others
         loopy_kernels(dev, kernels, parent)
     if "grid" in phases:  # the grid's shapes

@@ -77,3 +77,22 @@ def fused_work(p, k0, m, d, s_dim, maps, pred, z_mask, cor, params):
 def fused_bound(p, k0, m, d, s_dim, maps, pred, z_mask, cor, params, **rates):
     """(bound ms, bound by) of one fused launch."""
     return bound(*fused_work(p, k0, m, d, s_dim, maps, pred, z_mask, cor, params), **rates)
+
+
+def mixture_work(predicted, corrected, jmeans, jvalid):
+    """(bytes, fp32 operations) of one launch of the mixture likelihood
+    kernel: both maps' leaves, the MAP means and their valid rows read once
+    and rest [P] written once; per live component its inverse and
+    log-multiplier (~45 operations with the weight's exp), per (valid row,
+    live component) pair its score and its term of the log-sum-exp (~35)."""
+    p, e = jvalid.shape
+    kp, kc = predicted.logw.shape[1], corrected.logw.shape[1]
+    nbytes = 4 * (10 * p * (kp + kc) + 3 * p * e + p) + p * e
+    live = (predicted.logw > DEAD / 2).sum(1) + (corrected.logw > DEAD / 2).sum(1)
+    ops = (45 * live + 35 * jvalid.sum(1) * live).sum()
+    return nbytes, int(ops.item())
+
+
+def mixture_bound(predicted, corrected, jmeans, jvalid, **rates):
+    """(bound ms, bound by) of one mixture likelihood launch."""
+    return bound(*mixture_work(predicted, corrected, jmeans, jvalid), **rates)

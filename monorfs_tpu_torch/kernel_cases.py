@@ -88,3 +88,84 @@ def beam_ties(seed, p, m, c, n_words):
     wk[rng.random((p, m, c)) < 0.05] = n_words
     bk = np.left_shift(np.uint32(1), (idx % 32).astype(np.uint32)).view(np.int32)
     return base, od, wk, bk
+
+
+def mixture_case(seed, p, kp, kc, e, n_lm=40, live_p=None, live_c=None, n_valid=None, singular=0,
+                 garbage=False):
+    """Inputs of the weight stage's mixture likelihoods (the predicted and
+    the corrected map, the MAP means and their valid rows), as a filter
+    hands them on: in each map the first n_lm live components lie at the
+    world's landmarks with weights near 1, the other live ones are light
+    (births, clutter), on random slots among dead ones; the rows are the
+    corrected map's live means in weight order, valid up to floor(sum w)
+    (or n_valid) and E.
+
+    live_p / live_c: live components of each map (default half the slots).
+    singular: that many of the heaviest live components of both maps get a
+    zero covariance (det 0) and one more a negative one (log det NaN), so
+    their density is not finite. garbage: the dead slots hold NaN and 1e30
+    means and zero covariances instead of an empty slot's zeros and
+    identity.
+
+    Returns (pred leaves [10, P, KP], cor leaves [10, P, KC] in SGM order,
+    jmeans [3, P, E], float64; jvalid [P, E] bool)."""
+    rng = np.random.default_rng(seed)
+    lm = rng.uniform(-1.0, 1.0, (n_lm, 3))
+    lm[:, 2] += 2.0
+
+    def make(k, live):
+        live = k // 2 if live is None else min(live, k)
+        slots = np.argsort(rng.random((p, k)), axis=1)[:, :live]
+        rank = np.full((p, k), k)
+        np.put_along_axis(rank, slots, np.broadcast_to(np.arange(live), (p, live)), axis=1)
+        alive = rank < live
+        heavy = rank < n_lm
+        which = np.where(heavy, rank % max(n_lm, 1), rng.integers(0, n_lm, (p, k)))
+        mean = lm[which] + rng.normal(0.0, 0.03, (p, k, 3))
+        sd = rng.uniform(0.05, 0.2, (p, k, 3))
+        rho = rng.uniform(-0.3, 0.3, (p, k, 3))
+        cov = [sd[..., 0] ** 2, rho[..., 0] * sd[..., 0] * sd[..., 1], rho[..., 1] * sd[..., 0] * sd[..., 2],
+               sd[..., 1] ** 2, rho[..., 2] * sd[..., 1] * sd[..., 2], sd[..., 2] ** 2]
+        logw = np.where(heavy, rng.uniform(-0.4, 0.1, (p, k)), rng.uniform(-9.0, -3.0, (p, k)))
+        logw = np.where(alive, logw, DEAD)
+        bad = alive & (rank < singular + 1)
+        for i in range(6):
+            neg = -0.01 if i in (0, 3, 5) else 0.0
+            cov[i] = np.where(bad, np.where(rank < singular, 0.0, neg), cov[i])
+        dead = ~alive
+        if garbage:
+            junk = np.where(rng.random((p, k)) < 0.5, np.nan, 1e30)
+            mean = np.where(dead[..., None], junk[..., None], mean)
+            cov = [np.where(dead, 0.0, c) for c in cov]
+        else:
+            mean = np.where(dead[..., None], 0.0, mean)
+            cov = [np.where(dead, float(i in (0, 3, 5)), c) for i, c in enumerate(cov)]
+        return np.stack([mean[..., 0], mean[..., 1], mean[..., 2], *cov, logw]), alive
+
+    pred, _ = make(kp, live_p)
+    cor, alive = make(kc, live_c)
+    order = np.argsort(-cor[9], axis=1, kind="stable")[:, :e]
+    if order.shape[1] < e:
+        order = np.concatenate([order, np.zeros((p, e - order.shape[1]), order.dtype)], axis=1)
+    jmeans = np.stack([np.take_along_axis(cor[i], order, axis=1) for i in range(3)])
+    jmeans = np.where(np.isfinite(jmeans), jmeans, 0.0)
+    if n_valid is None:
+        n = np.minimum(np.floor(np.where(alive, np.exp(cor[9]), 0.0).sum(1)), alive.sum(1))
+    else:
+        n = np.full(p, n_valid)
+    jvalid = np.arange(e)[None, :] < n[:, None]
+    return pred, cor, jmeans, jvalid
+
+
+# The edge cases of the mixture likelihood kernel, each a mixture_case:
+# name: (P, KP, KC, E, keyword arguments)
+MIXTURE_EDGES = {
+    "no-live-predicted": (4, 64, 48, 16, dict(live_p=0)),
+    "no-live": (4, 64, 48, 16, dict(live_p=0, live_c=0, n_valid=16)),
+    "all-invalid": (4, 64, 48, 16, dict(n_valid=0)),
+    "singular-covariance": (4, 64, 48, 16, dict(singular=3)),
+    "k-not-a-multiple-of-32": (5, 45, 37, 12, dict(n_lm=10)),
+    "more-live-than-a-tile": (2, 2500, 2300, 8, dict(live_p=2400, live_c=2200)),
+    "one-row": (4, 64, 48, 1, {}),
+    "dead-slots-garbage": (4, 64, 48, 16, dict(garbage=True)),
+}

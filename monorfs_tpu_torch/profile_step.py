@@ -81,7 +81,8 @@ from .spans import SPANS
 CLI_WORLDS = {"3d": ("sim3d.world", "mov3d.in"), "2d": ("linear2d.world", "mov2d.in"),
               "2dloop": ("linear2dloop.world", "mov2dloop.in"), "1d": ("linear1d.world", "mov1d.in")}
 GRAPH_WARM = 250  # navigator frames run before its profile starts
-KERNELS = {"beam_scan": "beam_scan", "fused_stage": "fused_stage_kernel"}  # name: substring
+KERNELS = {"beam_scan": "beam_scan", "fused_stage": "fused_stage_kernel",
+           "mixture_ll": "mixture_ll_kernel"}  # name: substring
 PACKAGE = pathlib.Path(__file__).resolve().parent
 
 

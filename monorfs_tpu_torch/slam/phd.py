@@ -16,8 +16,9 @@ make_slam_step wires it in the JAX package (phd.py:574-635):
             the XLA path's semantics (_births_soa + _correct_prune_soa: one
             global top-K cut, no gate_top cap, survivors in weight order)
             for float64 and the Kinect model;
-  weight    the MAP-estimate weight inputs per particle, then the
-            association beam over all particles (slam/beam_kernel.py);
+  weight    the MAP-estimate weight inputs per particle (the two mixture
+            likelihoods: slam/mixture_kernel.py), then the association
+            beam over all particles (slam/beam_kernel.py);
   normalise logsumexp with a NaN guard, then the ESS test and systematic
             resampling, selected with torch.where so a frame needs no host
             sync.
@@ -39,12 +40,8 @@ from ..gm import gaussian, mixture, smallmat
 from ..gm.gaussian import sqrt_cov
 from ..gm.mixture import ALIVE_THRESHOLD, DEAD, GM, SGM
 from ..spans import nested
-from . import association, beam_kernel, fused_kernel
+from . import association, beam_kernel, fused_kernel, mixture_kernel
 from .assignment import first_argmax
-
-# log(1e-300): the reference's float64 density floor, pinned in log space so
-# float32 runs keep the float64 semantics (phd.py:52-56 of the JAX package).
-LOG_EVAL_FLOOR = -690.77552789821368
 
 
 @dataclasses.dataclass(frozen=True)
@@ -306,10 +303,12 @@ def live_first(z_mask, n):
     return torch.argsort((~z_mask).to(torch.uint8), stable=True)[:n]
 
 
-def weight_inputs(model, cfg, params, pose, predicted: SGM, corrected: SGM, z, z_mask):
+def weight_inputs(model, cfg, params, pose, predicted: SGM, corrected: SGM, z, z_mask, kernels=None):
     """Per-particle weight-stage inputs (WeightAlpha, PHDNavigator.cs:373-453):
     rest = (plog - n_pred) - (clog - n_corr) on the MAP estimate of the
-    corrected map, and the association beam's option tensors.
+    corrected map, and the association beam's option tensors. kernels picks
+    the mixture likelihoods as make_slam_step's switch does
+    (mixture_kernel.pick).
 
     Returns (rest [P], base [P], opt_delta [P, M, C+1], word_k, bit_k)."""
     mp = model.params
@@ -320,14 +319,8 @@ def weight_inputs(model, cfg, params, pose, predicted: SGM, corrected: SGM, z, z
         jm = torch.gather(mfeat, 1, jidx[..., None].expand(-1, -1, 3))
         jmeans = [jm[..., i] for i in range(3)]
 
-    def mixture_loglike(gm):
-        lv = torch.clamp(mixture.log_evaluate_many_soa(gm, jmeans), min=LOG_EVAL_FLOOR)
-        return torch.sum(torch.where(jvalid, lv, torch.zeros_like(lv)), dim=-1)
-
     with nested("phd.weight_inputs.mixture_ll"):
-        rest = (mixture_loglike(predicted) - mixture.expected_size(predicted)) - (
-            mixture_loglike(corrected) - mixture.expected_size(corrected)
-        )
+        rest = mixture_kernel.pick(corrected.logw.dtype, kernels)(predicted, corrected, jmeans, jvalid)
 
     with nested("phd.weight_inputs.assoc"):
         # valid measurements first, capped at the beam length
@@ -433,20 +426,23 @@ def make_slam_step(model, cfg: PHDConfig, slam: bool = True, kernels=None, stage
     particle, as the JAX step receives it under the smoother's vmap over
     leave-block-out passes (loopy.cavity_maps).
 
-    kernels chooses the births + correct + prune stage and the beam, as the
-    JAX step's pallas_correct / pallas_beam defaults do (phd.py:521-534):
+    kernels chooses the births + correct + prune stage, the mixture
+    likelihoods of the weight inputs and the beam, as the JAX step's
+    pallas_correct / pallas_beam defaults do (phd.py:521-534):
       None   the fused stage (fused_kernel.fused_stage) where
              fused_kernel.supported(model, dtype) holds, else the
-             XLA-semantics functions above; the beam kernel
+             XLA-semantics functions above; the mixture likelihood kernel
+             (mixture_kernel.mixture_rest) and the beam kernel
              (beam_kernel.beam_scan_batch) for every float32 SLAM step,
-             else the plain beam (beam_kernel.pick). A wrapper launches its CUDA kernel for
+             else their plain versions (mixture_kernel.pick,
+             beam_kernel.pick). A wrapper launches its CUDA kernel for
              CUDA tensors and runs its plain version for CPU tensors. So the
-             Kinect model in float32 takes the beam kernel and not the
-             fused one;
-      False  the XLA-semantics functions and the plain beam for any dtype
-             and model (the tests' oracle);
-      True   both kernels; a float64 state or a model the fused stage does
-             not support raises.
+             Kinect model in float32 takes the mixture and beam kernels and
+             not the fused one;
+      False  the XLA-semantics functions and the plain versions for any
+             dtype and model (the tests' oracle);
+      True   the three kernels; a float64 state or a model the fused stage
+             does not support raises.
 
     stages replaces a stage with another function, as tools/ablate.py takes
     stages out (the JAX tool patches the module instead):
@@ -509,7 +505,7 @@ def make_slam_step(model, cfg: PHDConfig, slam: bool = True, kernels=None, stage
         else:
             with record_function("phd.weight_inputs"):
                 rest, base, od, wk, bk = weight_inputs(
-                    model, cfg, params, state.pose, predicted, corrected, z, z_mask
+                    model, cfg, params, state.pose, predicted, corrected, z, z_mask, kernels
                 )
             with record_function("phd.beam_scan"):
                 beam = beam_kernel.pick(od.dtype, kernels)
