@@ -28,6 +28,7 @@ The default device is cuda; without a GPU it raises unless given
 
 import argparse
 import json
+import pathlib
 import time
 
 import numpy as np
@@ -42,6 +43,8 @@ from .slam import phd
 
 PARTICLES = 100_000  # the BASELINE flagship: 100k particles, a 10k-landmark BA
 LANDMARKS = 10_240
+# the flagship's filter budget, the one cfg that states it for this script and the command line
+FLAGSHIP_CFG = pathlib.Path(__file__).resolve().parent.parent / "experiments" / "configs" / "flagship.cfg"
 
 
 def big_world(n_landmarks, seed=0):
@@ -62,10 +65,12 @@ def big_world(n_landmarks, seed=0):
 
 
 def flagship_config(particles):
-    """bench_flagship.py:62-72 of the repository."""
-    return phd.PHDConfig(num_particles=particles, max_components=128, max_measurements=48,
-                         gate_top=8, estimate_cap=48, beam_width=32, beam_meas_cap=24,
-                         beam_candidates=6, merge_rounds=4)
+    """The filter budget of bench_flagship.py:62-72 of the repository, as
+    FLAGSHIP_CFG states it (MaxQuantity and the PHD step's budget keys),
+    with 48 measurement slots."""
+    cfg = Config.from_file(FLAGSHIP_CFG)
+    return phd.PHDConfig(num_particles=particles, max_components=cfg.max_quantity, max_measurements=48,
+                         **cfg.phd_budget())
 
 
 def _sync(device):

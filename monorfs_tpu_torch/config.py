@@ -2,10 +2,17 @@
 (reference: mono-rfs-lib/Config.cs:43-310): the fields, the model presets,
 the `Name: value` descriptor format with Octave-style matrices that cfg files
 and recordings carry, plus `phd_params` returning the PHD navigator
-parameters as torch tensors."""
+parameters as torch tensors.
+
+Beyond the reference's fields, a cfg may state the PHD step's budget
+(`GateTop`, `EstimateCap`, `BeamWidth`, `BeamCandidates`, `BeamMeasCap`,
+`MergeRounds`: the PHDConfig fields of the same names, as `phd_budget`
+returns them); each defaults to None, which keeps PHDConfig's default and
+writes no line, so a cfg without them serialises as the reference's does."""
 
 import dataclasses
 import re
+from typing import Optional
 
 import numpy as np
 import torch
@@ -32,7 +39,7 @@ def _format_matrix(mat):
 @dataclasses.dataclass
 class Config:
     """Config.cs:45-103 field for field (rendering-only fields kept so a
-    reference cfg maps one to one)."""
+    reference cfg maps one to one), then the PHD step's budget."""
 
     # General
     n_parallel: int = 8
@@ -97,6 +104,14 @@ class Config:
 
     # OdometryNavigator
     odometry_merge_threshold: float = 1e-2
+
+    # the PHD step's budget: the port's own keys (module docstring)
+    gate_top: Optional[int] = None
+    estimate_cap: Optional[int] = None
+    beam_width: Optional[int] = None
+    beam_candidates: Optional[int] = None
+    beam_meas_cap: Optional[int] = None
+    merge_rounds: Optional[int] = None
 
     def __post_init__(self):
         if self.motion_covariance is None:
@@ -182,7 +197,15 @@ class Config:
         "NewLandmarkThreshold": ("new_landmark_threshold", int),
         "DAAlgorithm": ("da_algorithm", str),
         "OdometryMergeThreshold": ("odometry_merge_threshold", float),
+        "GateTop": ("gate_top", int),
+        "EstimateCap": ("estimate_cap", int),
+        "BeamWidth": ("beam_width", int),
+        "BeamCandidates": ("beam_candidates", int),
+        "BeamMeasCap": ("beam_meas_cap", int),
+        "MergeRounds": ("merge_rounds", int),
     }
+    PHD_BUDGET = ("gate_top", "estimate_cap", "beam_width", "beam_candidates", "beam_meas_cap",
+                  "merge_rounds")
 
     def apply_descriptor(self, lines):
         """Apply `Name: value` lines, leaving missing fields as-is
@@ -243,6 +266,11 @@ class Config:
             else:
                 out.append(f"{name}: {val}")
         return "\n".join(out)
+
+    def phd_budget(self):
+        """The PHD step's budget that this configuration states: the
+        PHDConfig fields of PHD_BUDGET that are not None."""
+        return {name: getattr(self, name) for name in self.PHD_BUDGET if getattr(self, name) is not None}
 
     def phd_params(self, dtype=torch.float32, device="cuda"):
         """PHDParams tensors the navigator consumes (covariance multipliers

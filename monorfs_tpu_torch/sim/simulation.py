@@ -156,6 +156,7 @@ class Simulation:
             num_particles=particles,
             max_components=cfg.max_quantity,
             max_measurements=self.max_meas,
+            **cfg.phd_budget(),
         )
         self.particles = particles
 

@@ -350,18 +350,38 @@ def weight_inputs(model, cfg, params, pose, predicted: SGM, corrected: SGM, z, z
     return rest, base, od, wk, bk
 
 
+SCAN_BLOCK = 1024  # cumulative sums longer than this are taken in blocks (fixed_cumsum)
+
+
+def fixed_cumsum(x):
+    """The inclusive cumulative sum of x [N], added in an order fixed by N
+    alone: within blocks of SCAN_BLOCK, then each block's offset from the
+    blocks' totals. CUDA's one-pass scan over a vector longer than one tile
+    adds in an order that varies from run to run, so its float sums, and the
+    draws taken on them, would differ in their last bits between runs of one
+    seed (100,000 particles)."""
+    n = x.shape[0]
+    if n <= SCAN_BLOCK:
+        return torch.cumsum(x, dim=0)
+    blocks = -(-n // SCAN_BLOCK)
+    inner = torch.cumsum(torch.nn.functional.pad(x, (0, blocks * SCAN_BLOCK - n)).reshape(blocks, SCAN_BLOCK), dim=1)
+    totals = inner[:, -1]
+    return (inner + (fixed_cumsum(totals) - totals)[:, None]).reshape(-1)[:n]
+
+
 def systematic_draws(logweight, u):
     """The draws of systematic (wheel) resampling (PHDNavigator.cs:724-760)
     from the log-weights [P] of all particles and one uniform u in [0, 1):
     (source slot of every particle [P], BestParticle [])."""
     p = logweight.shape[0]
     w = torch.exp(logweight - torch.logsumexp(logweight, dim=0))
-    cum = torch.cumsum(w, dim=0)
-    positions = u / p + torch.arange(p, dtype=logweight.dtype, device=logweight.device) / p
-    src = torch.clamp(torch.searchsorted(cum, positions, side="left"), 0, p - 1)
-    # BestParticle: the last drawn slot whose source holds the max weight
-    # (PHDNavigator.cs:745-748)
-    best = p - 1 - first_argmax(torch.flip(w[src], dims=(0,)), 0)[1]
+    with nested("phd.normalise_resample.draws"):
+        cum = fixed_cumsum(w)
+        positions = u / p + torch.arange(p, dtype=logweight.dtype, device=logweight.device) / p
+        src = torch.clamp(torch.searchsorted(cum, positions, side="left"), 0, p - 1)
+        # BestParticle: the last drawn slot whose source holds the max weight
+        # (PHDNavigator.cs:745-748)
+        best = p - 1 - first_argmax(torch.flip(w[src], dims=(0,)), 0)[1]
     return src, best
 
 

@@ -30,6 +30,7 @@ SPANS = (
     "phd.weight_inputs.assoc",  # nested: profile_step (the gated association likelihood, the beam's options)
     "phd.beam_scan",  # profile_step; the benchmark's idle gaps
     "phd.normalise_resample",  # profile_step; the benchmark's idle gaps
+    "phd.normalise_resample.draws",  # nested: profile_step (the systematic draws on a blocked cumulative sum)
     "kinect.frontend",  # profile_step --kinect
     "graph.assoc",  # profile_step --graph
     "graph.hungarian",  # profile_step --graph
