@@ -6,8 +6,9 @@
 Phases, one line each; any failure exits non-zero:
   1. device, `nvidia-smi` name and power limit, kernel build (nvcc, sm_90a);
      the Python copies of csrc/'s shape decisions (fused_kernel.layout_bytes
-     and workspace_floats, beam_kernel.layout_bytes) against the built C
-     functions over a grid of shapes (`layout-check`);
+     and workspace_floats, beam_kernel.layout_bytes, mixture_kernel.layout_bytes,
+     assoc_kernel.launch_shape) against the built C functions over a grid of
+     shapes (`layout-check`);
   2. beam kernel vs its plain version, bit-identical: at the bench shape, on
      tie-heavy inputs, at B=64 C=8 n_words=3, at the default PHDConfig's
      B=200 C=8 n_words=4, tie-heavy at B=200 C=8 over 48 steps and at the
@@ -39,10 +40,19 @@ Phases, one line each; any failure exits non-zero:
      raising on float64; then at MIXTURE_SHAPES (chap3 at 2000 and 800
      particles, the command line's K0=600, the bench's K0=128 at 200 and
      100,000 particles) with its device time, wall time, plain time and
-     bound;
+     bound; then the association kernel (`assoc-check`, `assoc-shape`)
+     against assoc_options_plain, opt_delta, word_k and bit_k bit for bit
+     and base within E * 2^-23 of its size: on kernel_cases.ASSOC_CASES
+     (the bench, chap3 and flagship shapes, Linear2D / Linear1D, ties, no
+     gated pair, no valid MAP row, every slot dead, C past 8, E below C),
+     with strided and contiguous MAP means and a caller's packed vector
+     (equal), the wrapper raising on float64; then at ASSOC_SHAPES (chap3
+     at 2000 and 800 particles, the flagship's 100,000, the bench, the
+     command line's 3D, 2D and 1D) with its device time, wall time, plain
+     time and bound;
   4. the bench path: run_benchmark at the bench.py config (200 particles,
      K=128, 48 -> 24 measurement slots, beam 32 x 6, 300 frames), with the
-     three kernels launched once per frame and ATE below 0.03;
+     four kernels launched once per frame and ATE below 0.03;
   5. no host synchronisation: 10 frames of the bench path after warm-up under
      torch.cuda.set_sync_debug_mode("warn"), none from the port's code;
   6. the command-line path at full width, through cli.main and then
@@ -163,10 +173,11 @@ another checkout (DIR/monorfs_tpu_torch, built by its own _build), times
 its kernels on the same inputs, in turns with this checkout's
 (parent, this, this, parent), and holds the fused kernel's PRM3D results
 to the parent's bit for bit at the bench shape's states. --phases runs a
-subset (kernels = 1's checks, 2, 3 and the mixture likelihoods). Every
+subset (kernels = 1's checks, 2, 3 and the weight stage's kernels). Every
 path's launch counts hold the mixture likelihood kernel to once a float32
 SLAM frame, as the beam, and to none where no particle is weighed (mapping
-only, float64, the smoother, the graph backend).
+only, float64, the smoother, the graph backend); the association kernel the
+same, and to none with the Kinect model either.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -200,8 +211,8 @@ from monorfs_tpu_torch.gm.mixture import DEAD, SGM
 from monorfs_tpu_torch.io import Recording, World, parse_commands
 from monorfs_tpu_torch.io import avi
 from monorfs_tpu_torch.io.avi import jpeg_size, read_mjpeg
-from monorfs_tpu_torch.kernel_bounds import beam_bound, fused_bound, mixture_bound
-from monorfs_tpu_torch.kernel_cases import MIXTURE_EDGES, beam_ties, fused_state, mixture_case
+from monorfs_tpu_torch.kernel_bounds import assoc_bound, beam_bound, fused_bound, mixture_bound
+from monorfs_tpu_torch.kernel_cases import ASSOC_CASES, MIXTURE_EDGES, assoc_case, beam_ties, fused_state, mixture_case
 from monorfs_tpu_torch.models import PRM3D
 from monorfs_tpu_torch.models import get as get_model
 from monorfs_tpu_torch.render import axes
@@ -212,7 +223,7 @@ from monorfs_tpu_torch.parallel import chain, dist_ba, make_mesh, make_sharded_s
 from monorfs_tpu_torch.sim import vehicle as vehicle_mod
 from monorfs_tpu_torch.sim.simulation import Simulation
 from monorfs_tpu_torch.gm import mixture
-from monorfs_tpu_torch.slam import association, beam_kernel, fused_kernel, graph, loopy, mixture_kernel
+from monorfs_tpu_torch.slam import assoc_kernel, association, beam_kernel, fused_kernel, graph, loopy, mixture_kernel
 from monorfs_tpu_torch.slam.isam2_scan import build_isam2_scan_runner, scan_draws
 from monorfs_tpu_torch.slam.isam2_scan_da import build_mahalanobis_scan
 from monorfs_tpu_torch.slam import phd
@@ -223,6 +234,8 @@ BENCH_FRAMES = 300  # the whole of mov3d.in
 BEAM_KERNEL = "beam_scan"  # substring of every beam kernel's name
 FUSED_KERNEL = "fused_stage_kernel"
 MIXTURE_KERNEL = "mixture_ll_kernel"
+ASSOC_KERNEL = "assoc_options_kernel"
+KERNEL_NAMES = ("beam_scan", "fused_stage", "mixture_ll", "assoc_options")  # the launch counters
 
 
 def say(phase, **kv):
@@ -459,7 +472,7 @@ def beam_wide(dev):
     out, _ = bench_core.run_frames(runner, carry, cmds, draws)
     torch.cuda.synchronize()
     launches = read_launches()
-    if launches != {"beam_scan": WIDE_FRAMES, "fused_stage": WIDE_FRAMES, "mixture_ll": WIDE_FRAMES}:
+    if launches != dict.fromkeys(KERNEL_NAMES, WIDE_FRAMES):
         raise AssertionError(f"B={b} steps: launches {launches}")
     if not torch.isfinite(out.nstate.logweight).all():
         raise AssertionError(f"B={b} steps: log-weights not finite")
@@ -595,7 +608,8 @@ def fused_row(name, mname, args, reps, parent, err):
 
 
 # csrc/'s shape decisions, copied in Python (fused_kernel.layout_bytes /
-# workspace_floats, beam_kernel.layout_bytes), against the built C functions
+# workspace_floats, beam_kernel.layout_bytes, mixture_kernel.layout_bytes,
+# assoc_kernel.launch_shape), against the built C functions
 LAYOUT_FUSED_K0 = (16, 64, 128, 300, 400, 500, 600, 663, 1000, 2000)
 LAYOUT_FUSED_M = (1, 20, 24, 33, 48, 64, 180, 188)
 LAYOUT_BEAM = [(m, c, b, w) for m in (24, 48, 188) for c in (6, 7, 8)
@@ -603,6 +617,8 @@ LAYOUT_BEAM = [(m, c, b, w) for m in (24, 48, 188) for c in (6, 7, 8)
                for w in (1, 2, 4)]
 LAYOUT_MIXTURE = [(k, e) for k in (1, 37, 152, 548, 648, 1064, 2047, 2048, 2500, 10**5)
                   for e in (1, 48, 128, 4096)]
+LAYOUT_ASSOC = [(e, m, mz, d) for e in (0, 4, 48, 128, 2000, 7000, 11_600, 11_700)
+                for m, mz in ((0, 0), (24, 24), (24, 48), (48, 48), (188, 188), (300, 300)) for d in (1, 2, 3)]
 
 
 def layout_check():
@@ -621,10 +637,15 @@ def layout_check():
         got, want = mixture_kernel.layout_bytes(k, e), mixture_kernel.smem_bytes(k, e)
         if got != want:
             bad.append(("mixture", k, e, got, want))
+    for e, m, mz, d in LAYOUT_ASSOC:
+        got = assoc_kernel.launch_shape(e, m, mz, d)
+        want = (assoc_kernel.particles_per_block(e, m, mz, d), assoc_kernel.smem_bytes(e, m, mz, d))
+        if got != want:
+            bad.append(("assoc", e, m, mz, d, got, want))
     if bad:
         raise AssertionError(f"Python layout copies differ from csrc/: {bad[:10]}")
     say("layout-check", fused_shapes=len(LAYOUT_FUSED_K0) * len(LAYOUT_FUSED_M), beam_shapes=len(LAYOUT_BEAM),
-        mixture_shapes=len(LAYOUT_MIXTURE), equal=True, fused_live_smem_bytes=fused_kernel.layout_bytes(600, 48),
+        mixture_shapes=len(LAYOUT_MIXTURE), assoc_shapes=len(LAYOUT_ASSOC), equal=True, fused_live_smem_bytes=fused_kernel.layout_bytes(600, 48),
         beam_block_k_B910_B911_C8=[beam_kernel.block_k(910 * 9), beam_kernel.block_k(911 * 9)],
         beam_takes_B4768_B4769_C8_W4=[beam_kernel.takes(24, 8, 4768, 4), beam_kernel.takes(24, 8, 4769, 4)])
 
@@ -852,16 +873,153 @@ def mixture_phase(dev):
                 bound_by=head["bound_by"], library_ms=None, shapes=rows)
 
 
+# ---- phase 3c: the association options -------------------------------------------
+
+# The shapes the association kernel serves: name, model, P, E, slots, live
+# slots, beam_meas_cap, C, timing reps. chap3: chap3-default.cfg (MAP cap 128,
+# 48 slots, C 8) at 2000 and 800 particles; flagship: experiments/configs/
+# flagship.cfg (MAP cap 48, 48 slots cut to 24, C 6) at 100,000; bench:
+# bench.py's (24 compacted slots); cli3d and the linear worlds: the command
+# line's default PHDConfig (MAP cap 128, C 8) at 200 particles.
+ASSOC_SHAPES = [
+    ("chap3-P2000-E128-M48-C8", "PRM3D", 2000, 128, 48, 40, 0, 8, 20),
+    ("flagship-P100000-E48-M24-C6", "PRM3D", 100_000, 48, 48, 41, 24, 6, 5),
+    ("chap3-P800-E128-M48-C8", "PRM3D", 800, 128, 48, 40, 0, 8, 20),
+    ("bench-P200-E48-M24-C6", "PRM3D", 200, 48, 24, 20, 24, 6, 20),
+    ("cli3d-P200-E128-M48-C8", "PRM3D", 200, 128, 48, 40, 0, 8, 20),
+    ("lin2d-P200-E128-M33-C8", "Linear2D", 200, 128, 33, 26, 0, 8, 20),
+    ("lin1d-P200-E128-M20-C8", "Linear1D", 200, 128, 20, 13, 0, 8, 20),
+]
+ASSOC_DRAWN = 10_000  # particles drawn on the host; a larger P repeats them on the card
+# base: the kernel adds the E valid rows' log miss in landmark order, the
+# plain version's torch.sum in its own order. Every term is <= 0, so each
+# order lies within (E - 1) float32 rounding units (2^-24) of |base| of the
+# exact sum, and the two within E * 2^-23 * |base| of each other; a row
+# dropped or counted twice moves base by a whole term, ~0.1 or more.
+ASSOC_BASE_ULPS = 2.0 ** -23
+
+
+def assoc_inputs(seed, mname, p, e, mz, n_live, cap, c, dev, **kw):
+    """assoc_case on the card: (model, cfg, params, pose, jmeans, jvalid, z,
+    z_mask) in float32, jmeans as views of one [P, E, 3] tensor (the weight
+    inputs' gather); past ASSOC_DRAWN particles the drawn ones repeat."""
+    pose, jm, jv, z, zm = assoc_case(seed, min(p, ASSOC_DRAWN), e, mz, n_live, model=mname, **kw)
+    reps = -(-p // ASSOC_DRAWN)
+
+    def card(x, dtype):  # the particle axis repeated up to p
+        x = torch.as_tensor(np.ascontiguousarray(x), dtype=dtype, device=dev)
+        return torch.cat([x] * reps).narrow(0, 0, p).contiguous()
+
+    jm = card(np.moveaxis(jm, 0, -1), torch.float32)  # [P, E, 3]
+    cfg = PHDConfig(num_particles=p, estimate_cap=e, max_measurements=mz, beam_meas_cap=cap, beam_candidates=c)
+    return (get_model(mname), cfg, model_phd_params(mname, dev), card(pose, torch.float32),
+            [jm[..., i] for i in range(3)], card(jv, torch.bool),
+            torch.as_tensor(z, dtype=torch.float32, device=dev), torch.as_tensor(zm, device=dev))
+
+
+def assoc_check(name, args, packed=None):
+    """The kernel against the plain version on args: opt_delta, word_k and
+    bit_k bit for bit, base within E * ASSOC_BASE_ULPS of its size (NaN
+    where the plain version's is); returns the largest base gap over that
+    limit's scale."""
+    out = assoc_kernel.assoc_options(*args, packed)
+    ref = assoc_kernel.assoc_options_plain(*args)
+    torch.cuda.synchronize()
+    for what, a, b in zip(("opt_delta", "word_k", "bit_k"), out[1:], ref[1:]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"association kernel differs from plain on {name}: {what}, "
+                                 f"{int((a != b).sum().item())} of {a.numel()} entries")
+    e = args[5].shape[1]
+    base, want = out[0], ref[0]
+    if not torch.equal(torch.isnan(base), torch.isnan(want)):
+        raise AssertionError(f"association kernel's base differs from plain on {name}: NaN rows")
+    ok = ~torch.isnan(want)
+    gap = (base[ok] - want[ok]).abs()
+    scale = e * ASSOC_BASE_ULPS * want[ok].abs()
+    rel = (gap / scale.clamp(min=1e-30)).max().item() if gap.numel() else 0.0
+    if not (gap <= scale).all():
+        raise AssertionError(f"association kernel's base differs from plain on {name}: "
+                             f"{gap.max().item()} (limit E * 2^-23 * |base|)")
+    return rel
+
+
+def assoc_phase(dev):
+    """The association kernel against assoc_options_plain: the edge cases
+    (kernel_cases.ASSOC_CASES: ties, no gated pair, no valid MAP row, every
+    slot dead, C past 8, E below C, the three families), strided and
+    contiguous MAP means and two launches giving equal results, the
+    parameter vector packed by the caller and by the wrapper equal; the
+    wrapper raising on float64; then at each of ASSOC_SHAPES its device
+    time, the wrapper's wall time, the plain version's time and the bound.
+    Returns the kernel table's row."""
+    edges = {}
+    for i, (name, (mname, p, e, mz, n_live, cap, c, kw)) in enumerate(ASSOC_CASES.items()):
+        edges[name] = assoc_check(name, assoc_inputs(60 + i, mname, p, e, mz, n_live, cap, c, dev, **kw))
+    args = assoc_inputs(70, "PRM3D", 800, 128, 48, 40, 0, 8, dev)
+    contiguous = (*args[:4], [x.contiguous() for x in args[4]], *args[5:])
+    packed = assoc_kernel.pack_params(args[0], args[2])
+    once = assoc_kernel.assoc_options(*args)
+    for other in (assoc_kernel.assoc_options(*contiguous), assoc_kernel.assoc_options(*args, packed)):
+        if not all(torch.equal(a, b) for a, b in zip(once, other)):
+            raise AssertionError("the association kernel's result moved with the MAP means' strides, "
+                                 "the packed vector or between launches")
+    try:
+        assoc_kernel.assoc_options(*args[:3], args[3].double(), *args[4:])
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("the association kernel's wrapper took float64 poses")
+    say("assoc-check", max_base_rel_err=edges, base_limit="E * 2^-23 * |base|", equal_strided_contiguous=True,
+        equal_twice=True, float64_raises=True)
+    rows = []
+    for i, (name, mname, p, e, mz, n_live, cap, c, reps) in enumerate(ASSOC_SHAPES):
+        args = assoc_inputs(80 + i, mname, p, e, mz, n_live, cap, c, dev)
+        model = args[0]
+        packed = assoc_kernel.pack_params(model, args[2])
+        rel = assoc_check(name, args, packed)
+        m = min(cap or mz, mz)
+        # the wrapper allocates its four outputs and nothing of size [P, E, M]
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        outs = assoc_kernel.assoc_options(*args, packed)
+        torch.cuda.synchronize()
+        alloc = torch.cuda.max_memory_allocated(dev) - before
+        out_bytes = sum(x.numel() * x.element_size() for x in outs)
+        del outs
+        if alloc > out_bytes + 2**20:
+            raise AssertionError(f"the association kernel's call on {name} allocated {alloc} bytes, "
+                                 f"its outputs {out_bytes}")
+        ms = kernel_ms(lambda: assoc_kernel.assoc_options(*args, packed), reps, ASSOC_KERNEL)
+        bms, by = assoc_bound(p, e, m, mz, c, model.meas_dim, model.pose.state_dim, min(n_live, m))
+        row = dict(case=name, shape=dict(P=p, E=e, M=m, slots=mz, live=n_live, C=c, model=mname),
+                   max_base_rel_err=rel, call_alloc_bytes=alloc, output_bytes=out_bytes, ms=ms,
+                   wrapper_ms=wall_ms(lambda: assoc_kernel.assoc_options(*args, packed), reps),
+                   plain_ms=cuda_ms(lambda: assoc_kernel.assoc_options_plain(*args), 2), bound_ms=bms, bound_by=by,
+                   particles_per_block=assoc_kernel.particles_per_block(e, m, mz, model.meas_dim),
+                   smem_bytes=assoc_kernel.smem_bytes(e, m, mz, model.meas_dim))
+        say("assoc-shape", **row)
+        rows.append(row)
+    head = rows[0]
+    return dict(name="assoc_options", route="cuda", source="monorfs_tpu_torch/csrc/assoc_options.cu",
+                replaces="none (XLA in the JAX package: monorfs_tpu/slam/phd.py's weight inputs)",
+                max_abs_err=0.0, max_base_rel_err=max([r["max_base_rel_err"] for r in rows] + list(edges.values())),
+                ms=head["ms"], wrapper_ms=head["wrapper_ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+                bound_by=head["bound_by"], library_ms=None, shapes=rows)
+
+
 def reset_launches():
     beam_kernel.beam_scan_batch.launches = 0
     fused_kernel.fused_stage.launches = 0
     mixture_kernel.mixture_rest.launches = 0
+    assoc_kernel.assoc_options.launches = 0
 
 
 def read_launches():
     return {"beam_scan": beam_kernel.beam_scan_batch.launches,
             "fused_stage": fused_kernel.fused_stage.launches,
-            "mixture_ll": mixture_kernel.mixture_rest.launches}
+            "mixture_ll": mixture_kernel.mixture_rest.launches,
+            "assoc_options": assoc_kernel.assoc_options.launches}
 
 
 def bench_phase(dev, kernels):
@@ -923,9 +1081,11 @@ def run_cli(name, argv, frames, per_frame, ate_limit, ospa_limit, record):
         cli.main(argv + ["-r", str(record)])
     seconds = time.perf_counter() - t0
     launches = read_launches()
-    # the mixture likelihoods run once a SLAM frame, as the beam does
+    # the mixture likelihoods run once a SLAM frame, as the beam does; the
+    # association options once a SLAM frame where the fused stage runs (no
+    # depth model, float32)
     want = {"fused_stage": per_frame[0] * frames, "beam_scan": per_frame[1] * frames,
-            "mixture_ll": per_frame[1] * frames}
+            "mixture_ll": per_frame[1] * frames, "assoc_options": per_frame[0] * per_frame[1] * frames}
     if launches != want:
         raise AssertionError(f"{name}: launches {launches}, expected {want}")
     with contextlib.redirect_stdout(out):
@@ -947,7 +1107,8 @@ def run_cli(name, argv, frames, per_frame, ate_limit, ospa_limit, record):
                                 if per_frame == (0, 0) else
                                 "fused only: mapping-only weighs no particle" if per_frame == (1, 0) else
                                 "mixture likelihoods and beam: the Kinect model's depth occlusion keeps the "
-                                "fused kernel off" if per_frame == (0, 1) else "fused, mixture likelihoods and beam"))
+                                "fused and association kernels off" if per_frame == (0, 1) else
+                                "fused, mixture likelihoods, association options and beam"))
     say("cli-run", **row)
     return row, rec, launches
 
@@ -958,7 +1119,7 @@ def cli_phase(dev, kernels, tmp):
     error limits and the odometry replay against the recorded odometry
     integrated."""
     assets = pathlib.Path(__file__).resolve().parent / "assets"
-    total = {"beam_scan": 0, "fused_stage": 0, "mixture_ll": 0}
+    total = dict.fromkeys(KERNEL_NAMES, 0)
     for name, files, flags, frames, per_frame, ate_limit, ospa_limit in CLI_RUNS:
         argv = ["-f", str(assets / files[0]), "-c", str(assets / files[1])] + flags
         _, _, launches = run_cli(name, argv, frames, per_frame, ate_limit, ospa_limit,
@@ -1096,7 +1257,7 @@ def graph_phase(dev, kernels, tmp):
     graph.assert_full_precision()
     assets = pathlib.Path(__file__).resolve().parent / "assets"
     world3d = ["-f", str(assets / "sim3d.world"), "-c", str(assets / "mov3d.in")]
-    total = {"beam_scan": 0, "fused_stage": 0, "mixture_ll": 0}
+    total = dict.fromkeys(KERNEL_NAMES, 0)
 
     def run(name, argv, frames, limits):
         row, rec, launches = run_cli(name, argv, frames, (0, 0), limits[0], limits[1], tmp / f"{name}.zip")
@@ -1269,9 +1430,10 @@ def run_loopy_cli(name, argv, limits, record, float32=True):
     text = out.getvalue()
     ate, ospa = printed_number(text, "ATE loc RMSE"), printed_number(text, "final OSPA")
     frames = len(Recording.load(record).trajectory)
-    # the smoother's steps are mapping-only: no weight stage, so no mixture likelihoods
+    # the smoother's steps are mapping-only: no weight stage, so no mixture
+    # likelihoods and no association options
     smoother = (launches["beam_scan"], launches["fused_stage"])
-    if launches["mixture_ll"] or not (all(smoother) if float32 else not any(smoother)):
+    if launches["mixture_ll"] or launches["assoc_options"] or not (all(smoother) if float32 else not any(smoother)):
         raise AssertionError(f"{name}: launches {launches} ({'float32' if float32 else 'float64'})")
     if not (np.isfinite(ate) and ate <= limits[0] and np.isfinite(ospa) and ospa <= limits[1]):
         raise AssertionError(f"{name}: ATE {ate} (limit {limits[0]}), OSPA {ospa} (limit {limits[1]})")
@@ -1297,7 +1459,7 @@ def loopy_phase(dev, kernels, tmp):
         cli.main(["-f", str(tmp / "s2-phd.zip"), "-i", "record", "-a", "odometry",
                   "-r", str(tmp / "s2-odo.zip")] + cfg)
     replay = ["-f", str(tmp / "s2-odo.zip"), "-i", "record", "-a", "loopy"] + cfg
-    total = {"beam_scan": 0, "fused_stage": 0, "mixture_ll": 0}
+    total = dict.fromkeys(KERNEL_NAMES, 0)
 
     def tally(row):
         for k, n in row["launches"].items():
@@ -1343,8 +1505,8 @@ def loopy_phase(dev, kernels, tmp):
     per_node, where = count_syncs(nav.sweep, 10)
     say("loopy-syncs", nodes=10, syncs_per_node=per_node, where=where,
         note="a refit sweep over 10 nodes, its two objective reads included")
-    if not (total["beam_scan"] and total["fused_stage"]) or total["mixture_ll"]:
-        raise AssertionError(f"the smoother launched a kernel no time, or the mixture likelihoods: {total}")
+    if not (total["beam_scan"] and total["fused_stage"]) or total["mixture_ll"] or total["assoc_options"]:
+        raise AssertionError(f"the smoother launched a kernel no time, or a weight-stage kernel: {total}")
     for k in kernels:
         k["launches"] = k.get("launches", 0) + total[k["name"]]
         k.setdefault("launches_by_path", {})["loopy"] = total[k["name"]]
@@ -1421,7 +1583,7 @@ def kinect_phase(dev, kernels, tmp):
         decoder="native librfsio (build/native)" if native.available() else "pure-Python fallback",
         shapes={k: list(getattr(seq, k).shape) for k in ("time", "depth", "gray")},
         dtypes={k: str(getattr(seq, k).dtype) for k in ("time", "depth", "gray")})
-    total = {"beam_scan": 0, "fused_stage": 0, "mixture_ll": 0}
+    total = dict.fromkeys(KERNEL_NAMES, 0)
 
     def counted(fn):
         reset_launches()
@@ -1453,9 +1615,9 @@ def kinect_phase(dev, kernels, tmp):
     peak = torch.cuda.max_memory_allocated(dev)
     row = k9["phd"]
     frames = row["frames"]
-    if launches != {"beam_scan": frames, "fused_stage": 0, "mixture_ll": frames}:
+    if launches != {"beam_scan": frames, "fused_stage": 0, "mixture_ll": frames, "assoc_options": 0}:
         raise AssertionError(f"k9 phd: launches {launches} over {frames} frames (beam and mixture likelihoods "
-                             "once a frame, fused never)")
+                             "once a frame, fused and association options never)")
     if not (row["ate_loc_rmse"] < K9_PHD[0] and row.get("ospa_vs_refmap", 1.0) < K9_PHD[1]):
         raise AssertionError(f"k9 phd: {row}, limits {K9_PHD}")
     again, syncs = None, None
@@ -1617,7 +1779,7 @@ def grid_phase(dev, kernels, tmp):
     stats = json.loads((out / "chap3-s1.stats.json").read_text())
     phd, odo = legs
     n = GRID_S1_FRAMES
-    if phd["launches"] != {"beam_scan": n, "fused_stage": n, "mixture_ll": n} or any(odo["launches"].values()):
+    if phd["launches"] != dict.fromkeys(KERNEL_NAMES, n) or any(odo["launches"].values()):
         raise AssertionError(f"run_gpu_grid chap3-s1: launches {legs} (phd {n} of each, odometry none)")
     row = stats["phd"]
     if not (row["ate_loc_rmse"] < GRID_S1[0] and row["final_ospa"] < GRID_S1[1]):
@@ -1635,7 +1797,7 @@ def grid_phase(dev, kernels, tmp):
     launches = read_launches()
     rows = json.loads((out / "throughput.stats.json").read_text())
     frames = sum(2 * rows[str(p)]["frames"] for p in GRID_THROUGHPUT)  # a warm-up and a timed run each
-    if launches != {"beam_scan": frames, "fused_stage": frames, "mixture_ll": frames}:
+    if launches != dict.fromkeys(KERNEL_NAMES, frames):
         raise AssertionError(f"throughput: launches {launches} over {frames} frames")
     for p in GRID_THROUGHPUT:
         r = rows[str(p)]
@@ -1648,7 +1810,7 @@ def grid_phase(dev, kernels, tmp):
     reset_launches()
     r = bench_scaling.run(SCALING_P, 50, dev)
     launches = read_launches()
-    if launches != {"beam_scan": 2 * r["frames"], "fused_stage": 2 * r["frames"], "mixture_ll": 2 * r["frames"]}:
+    if launches != dict.fromkeys(KERNEL_NAMES, 2 * r["frames"]):
         raise AssertionError(f"bench_scaling at {SCALING_P}: launches {launches} over 2 x {r['frames']} frames")
     if not r["ate_rmse_loc"] < ATE_LIMIT:
         raise AssertionError(f"bench_scaling at {SCALING_P}: {r}, ATE limit {ATE_LIMIT}")
@@ -1730,7 +1892,7 @@ def parallel_step(dev, mesh):
         sharded_s=sharded_s, launches=launches, comm={k: list(v) for k, v in mesh.comm.items()})
     if not (pose_err <= 1e-5 and lw_err <= 2e-3 and same_best and same_anc):
         raise AssertionError("the sharded step parts from the single-card step")
-    if launches != {"beam_scan": PARALLEL_FRAMES, "fused_stage": PARALLEL_FRAMES, "mixture_ll": PARALLEL_FRAMES}:
+    if launches != dict.fromkeys(KERNEL_NAMES, PARALLEL_FRAMES):
         raise AssertionError(f"sharded step: launches {launches} over {PARALLEL_FRAMES} frames")
     return launches
 
@@ -1765,7 +1927,7 @@ def parallel_chain(dev, mesh):
         comm={k: list(v) for k, v in mesh.comm.items()})
     if not all(e <= 1e-5 for e in errs.values()):
         raise AssertionError(f"the sharded sweep parts from the sequential sweep: {errs}")
-    if launches["fused_stage"] < PARALLEL_NODES or launches["mixture_ll"]:
+    if launches["fused_stage"] < PARALLEL_NODES or launches["mixture_ll"] or launches["assoc_options"]:
         raise AssertionError(f"sharded sweep: {launches}, the cavity passes launch the fused kernel a frame "
                              "and weigh no particle")
     return launches
@@ -1916,7 +2078,8 @@ def drive_manipulator(dev, tmp):
             renders += 1
     seconds = time.perf_counter() - t0
     launches = read_launches()
-    want = {"fused_stage": loop.frame, "beam_scan": slam_frames, "mixture_ll": slam_frames}
+    want = {"fused_stage": loop.frame, "beam_scan": slam_frames, "mixture_ll": slam_frames,
+            "assoc_options": slam_frames}
     if launches != want or paused_ticks != 1 or loop.frame != len(commands):
         raise AssertionError(f"manipulator: launches {launches}, expected {want} (frames {loop.frame}, "
                              f"SLAM {slam_frames}, paused ticks {paused_ticks})")
@@ -2087,6 +2250,7 @@ def main():
         kernels[-1]["shapes"].append(beam_wide(dev))
         kernels.append(fused_phase(dev, parent))
         kernels.append(mixture_phase(dev))
+        kernels.append(assoc_phase(dev))
     if "loopy" in phases:  # the smoother's kernel shapes, beside the others
         loopy_kernels(dev, kernels, parent)
     if "grid" in phases:  # the grid's shapes

@@ -96,3 +96,19 @@ def mixture_work(predicted, corrected, jmeans, jvalid):
 def mixture_bound(predicted, corrected, jmeans, jvalid, **rates):
     """(bound ms, bound by) of one mixture likelihood launch."""
     return bound(*mixture_work(predicted, corrected, jmeans, jvalid), **rates)
+
+
+def assoc_work(p, e, m, mz, c, d, s_dim, live_rows):
+    """(bytes, fp32 operations) of one launch of the association kernel:
+    the poses, the MAP means and their valid rows, the slots and their mask
+    read once, base, opt_delta, word_k and bit_k written once; per (particle,
+    MAP row) its predicted measurement, visibility and logs (~60
+    operations), per (particle, MAP row, live measurement row) pair its
+    difference, quadratic form, log-likelihood and delta (D + 3 D^2 + 4)."""
+    nbytes = 4 * (p * s_dim + 3 * p * e + mz * d + 3 + d + d * d + p + p * m * (c + 1) + 2 * p * m * c) + p * e + mz
+    return nbytes, p * e * 60 + p * e * live_rows * (d + 3 * d * d + 4)
+
+
+def assoc_bound(p, e, m, mz, c, d, s_dim, live_rows, **rates):
+    """(bound ms, bound by) of one association options launch."""
+    return bound(*assoc_work(p, e, m, mz, c, d, s_dim, live_rows), **rates)

@@ -157,6 +157,88 @@ def mixture_case(seed, p, kp, kc, e, n_lm=40, live_p=None, live_c=None, n_valid=
     return pred, cor, jmeans, jvalid
 
 
+def assoc_case(seed, p, e, mz, n_live, model="PRM3D", ties=False, n_valid=None, far=False):
+    """Inputs of the weight stage's association options (the particles'
+    poses, their MAP means and valid rows, the step's measurement slots), as
+    a filter hands them on: landmarks in clusters of four, close enough that
+    a measurement gates several; each particle's MAP rows the landmarks in
+    its own order with a little noise, from a pose near the vehicle's;
+    n_live live slots at random positions among mz, measurements of the
+    first landmarks with noise and one clutter return, the dead slots
+    holding NaN, inf and zeros. Some landmarks lie outside the sensor's
+    field, so their visibility clamps.
+
+    ties: the MAP rows come in pairs with equal means, so every gated delta
+    ties with its twin's. n_valid: valid rows (default three quarters of E).
+    far: every measurement lies far from every landmark, so no pair gates.
+
+    Returns (pose [P, S], jmeans [3, P, E], jvalid [P, E] bool, z [Mz, D],
+    z_mask [Mz] bool), float64."""
+    rng = np.random.default_rng(seed)
+    d = {"PRM3D": 3, "Linear2D": 2, "Linear1D": 1}[model]
+    n_lm = max(e // 2 if ties else e, 1)
+    n_c = -(-n_lm // 4)
+    lm = np.zeros((n_lm, 3))
+    if model == "PRM3D":
+        depth = rng.uniform(0.5, 1.8, n_c)
+        centre = np.stack([rng.uniform(-0.65, 0.65, n_c) * depth, rng.uniform(-0.5, 0.5, n_c) * depth, depth], -1)
+        lm = centre[np.arange(n_lm) // 4] + rng.normal(0.0, 1.0, (n_lm, 3)) * np.array([0.002, 0.002, 0.01])
+        pose = np.tile(np.array([0, 0, 0, 1, 0, 0, 0.0]), (p, 1))
+        pose[:, :3] += rng.normal(0.0, 0.003, (p, 3))
+        pose[:, 4:] += rng.normal(0.0, 0.002, (p, 3))
+        pose[:, 3:] /= np.linalg.norm(pose[:, 3:], axis=1, keepdims=True)
+        zs = PRM3D.measure(PRM3D.params, torch.tensor(np.array([0, 0, 0, 1, 0, 0.0, 0])), torch.tensor(lm)).numpy()
+        noise, clutter = np.array([1.5, 1.5, 0.03]), np.array([300.0, -230.0, 1.9])
+    else:
+        centre = rng.uniform(-1.8, 1.8, (n_c, d))
+        lm[:, :d] = centre[np.arange(n_lm) // 4] + rng.normal(0.0, 0.005, (n_lm, d))
+        pose = rng.normal(0.0, 0.005, (p, d))
+        zs = lm[:, :d]
+        noise, clutter = np.full(d, 0.02), np.array([1.95, -1.95][:d])
+    rows = np.stack([rng.permutation(n_lm) for _ in range(p)])
+    if ties:
+        rows = np.repeat(rows, 2, axis=1)
+    rows = np.concatenate([rows, rng.integers(0, n_lm, (p, max(e - rows.shape[1], 0)))], axis=1)[:, :e]
+    # one noise per (particle, landmark), so a landmark's twin rows are equal
+    mean = lm[rows] + rng.normal(0.0, 0.001, (p, n_lm, 3))[np.arange(p)[:, None], rows]
+    if model != "PRM3D":
+        mean[:, :, d:] = 0.0
+    n_valid = (3 * e) // 4 if n_valid is None else n_valid
+    jvalid = np.arange(e)[None, :] < np.minimum(n_valid, e)
+    z_mask = np.zeros(mz, bool)
+    z_mask[rng.permutation(mz)[:n_live]] = True
+    z = rng.choice([np.nan, np.inf, 0.0], (mz, d))
+    live = np.flatnonzero(z_mask)
+    z[live] = zs[np.arange(len(live)) % n_lm] + rng.normal(0.0, 1.0, (len(live), d)) * noise
+    if len(live):
+        z[live[-1]] = clutter
+    if far:
+        z[live] = clutter
+    return pose, np.moveaxis(mean, -1, 0), np.broadcast_to(jvalid, (p, e)).copy(), z, z_mask
+
+
+# The shapes and edge cases of the association kernel, each an assoc_case:
+# name: (model, P, E, slots Mz, live slots, beam_meas_cap, beam_candidates,
+# keyword arguments). bench: bench.py's (E 48, 24 compacted slots, C 6);
+# cli3d / chap3: the command line's and chap3-default.cfg's (E 128, 48 slots,
+# C 8); flagship: experiments/configs/flagship.cfg's (E 48, 48 slots cut to
+# 24, C 6); the linear models at the command line's capacity.
+ASSOC_CASES = {
+    "bench": ("PRM3D", 5, 48, 24, 20, 24, 6, {}),
+    "chap3": ("PRM3D", 4, 128, 48, 40, 0, 8, {}),
+    "flagship": ("PRM3D", 5, 48, 48, 41, 24, 6, {}),
+    "lin2d": ("Linear2D", 4, 128, 33, 26, 0, 8, {}),
+    "lin1d": ("Linear1D", 4, 128, 20, 13, 0, 8, {}),
+    "ties": ("PRM3D", 4, 48, 24, 20, 24, 6, dict(ties=True)),
+    "ties-lin2d": ("Linear2D", 4, 48, 24, 20, 24, 6, dict(ties=True)),
+    "no-gated-pair": ("PRM3D", 3, 48, 24, 20, 24, 6, dict(far=True)),
+    "all-invalid": ("PRM3D", 3, 48, 24, 20, 24, 6, dict(n_valid=0)),
+    "all-slots-dead": ("PRM3D", 3, 48, 24, 0, 24, 6, {}),
+    "c-past-8": ("PRM3D", 3, 64, 48, 40, 0, 20, {}),
+    "e-below-c": ("Linear2D", 3, 4, 12, 8, 0, 8, {}),
+}
+
+
 # The edge cases of the mixture likelihood kernel, each a mixture_case:
 # name: (P, KP, KC, E, keyword arguments)
 MIXTURE_EDGES = {

@@ -17,8 +17,9 @@ make_slam_step wires it in the JAX package (phd.py:574-635):
             global top-K cut, no gate_top cap, survivors in weight order)
             for float64 and the Kinect model;
   weight    the MAP-estimate weight inputs per particle (the two mixture
-            likelihoods: slam/mixture_kernel.py), then the association
-            beam over all particles (slam/beam_kernel.py);
+            likelihoods: slam/mixture_kernel.py; the association options:
+            slam/assoc_kernel.py), then the association beam over all
+            particles (slam/beam_kernel.py);
   normalise logsumexp with a NaN guard, then the ESS test and systematic
             resampling, selected with torch.where so a frame needs no host
             sync.
@@ -40,7 +41,8 @@ from ..gm import gaussian, mixture, smallmat
 from ..gm.gaussian import sqrt_cov
 from ..gm.mixture import ALIVE_THRESHOLD, DEAD, GM, SGM
 from ..spans import nested
-from . import association, beam_kernel, fused_kernel, mixture_kernel
+from . import assoc_kernel, association, beam_kernel, fused_kernel, mixture_kernel
+from .assoc_kernel import live_first
 from .assignment import first_argmax
 
 
@@ -298,20 +300,17 @@ def _correct_prune_soa(model, cfg, params, pose, pred: SGM, zl, z_mask):
     )
 
 
-def live_first(z_mask, n):
-    """Indices of the first n slots in live-first stable order."""
-    return torch.argsort((~z_mask).to(torch.uint8), stable=True)[:n]
-
-
-def weight_inputs(model, cfg, params, pose, predicted: SGM, corrected: SGM, z, z_mask, kernels=None):
+def weight_inputs(model, cfg, params, pose, predicted: SGM, corrected: SGM, z, z_mask, kernels=None,
+                  packed=None):
     """Per-particle weight-stage inputs (WeightAlpha, PHDNavigator.cs:373-453):
     rest = (plog - n_pred) - (clog - n_corr) on the MAP estimate of the
     corrected map, and the association beam's option tensors. kernels picks
-    the mixture likelihoods as make_slam_step's switch does
-    (mixture_kernel.pick).
+    the mixture likelihoods and the association options as make_slam_step's
+    switch does (mixture_kernel.pick, assoc_kernel.pick); packed is
+    assoc_kernel.pack_params(model, params) where the caller keeps it.
 
     Returns (rest [P], base [P], opt_delta [P, M, C+1], word_k, bit_k)."""
-    mp = model.params
+    dtype = corrected.logw.dtype
     with nested("phd.weight_inputs.map_estimate"):
         jidx, jvalid = mixture.best_map_indices(corrected.logw, cfg.estimate_cap)  # [P, E]
         mfeat = torch.stack(corrected.mean_list(), dim=-1)
@@ -320,32 +319,11 @@ def weight_inputs(model, cfg, params, pose, predicted: SGM, corrected: SGM, z, z
         jmeans = [jm[..., i] for i in range(3)]
 
     with nested("phd.weight_inputs.mixture_ll"):
-        rest = mixture_kernel.pick(corrected.logw.dtype, kernels)(predicted, corrected, jmeans, jvalid)
+        rest = mixture_kernel.pick(dtype, kernels)(predicted, corrected, jmeans, jvalid)
 
     with nested("phd.weight_inputs.assoc"):
-        # valid measurements first, capped at the beam length
-        order = live_first(z_mask, cfg.beam_meas_cap or z.shape[0])
-        zc = torch.where(torch.isfinite(z), z, torch.zeros_like(z))[order]
-        zc_mask = z_mask[order]
-
-        # gated association log-likelihood [P, E, M] (PHDNavigator.cs:415-453)
-        mu = model.measure_soa(mp, pose, jmeans)
-        pdv = model.fuzzy_visible_soa_fn(params.depth_map)(mp, mu, params.visibility_ramp) * params.pd
-        pdv = torch.clamp(pdv, 1e-30, 1.0 - 1e-7)
-        log_pd, log_miss = torch.log(pdv), torch.log1p(-pdv)
-        r = smallmat.from_tensor(params.meas_cov)
-        det_r = smallmat.det(r)
-        r_inv = smallmat.inv(r, det_r)
-        logmult = smallmat.log_multiplier(r, det_r)
-        diffz = [zc[:, i][None, None, :] - mi[:, :, None] for i, mi in enumerate(mu)]
-        d2 = smallmat.quadform(diffz, r_inv)
-        ll = log_pd[..., None] + logmult - 0.5 * d2
-        neg = torch.full_like(ll, association.NEG)
-        ll = torch.where(d2 < 25.0, ll, neg)  # Mahalanobis gate 5
-        ll = torch.where(zc_mask[None, None, :], ll, neg)
-        base, od, wk, bk, _ = association.prepare_options(
-            ll, log_miss, torch.log(params.clutter_density), jvalid, zc_mask,
-            cfg.beam_candidates,
+        base, od, wk, bk = assoc_kernel.pick(model, dtype, kernels)(
+            model, cfg, params, pose, jmeans, jvalid, z, z_mask, packed
         )
     return rest, base, od, wk, bk
 
@@ -447,21 +425,24 @@ def make_slam_step(model, cfg: PHDConfig, slam: bool = True, kernels=None, stage
     leave-block-out passes (loopy.cavity_maps).
 
     kernels chooses the births + correct + prune stage, the mixture
-    likelihoods of the weight inputs and the beam, as the JAX step's
-    pallas_correct / pallas_beam defaults do (phd.py:521-534):
+    likelihoods and the association options of the weight inputs and the
+    beam, as the JAX step's pallas_correct / pallas_beam defaults do
+    (phd.py:521-534):
       None   the fused stage (fused_kernel.fused_stage) where
              fused_kernel.supported(model, dtype) holds, else the
-             XLA-semantics functions above; the mixture likelihood kernel
+             XLA-semantics functions above; the association kernel
+             (assoc_kernel.assoc_options) where the same holds, else its
+             plain version (assoc_kernel.pick); the mixture likelihood kernel
              (mixture_kernel.mixture_rest) and the beam kernel
              (beam_kernel.beam_scan_batch) for every float32 SLAM step,
              else their plain versions (mixture_kernel.pick,
              beam_kernel.pick). A wrapper launches its CUDA kernel for
              CUDA tensors and runs its plain version for CPU tensors. So the
              Kinect model in float32 takes the mixture and beam kernels and
-             not the fused one;
+             neither the fused nor the association one;
       False  the XLA-semantics functions and the plain versions for any
              dtype and model (the tests' oracle);
-      True   the three kernels; a float64 state or a model the fused stage
+      True   the four kernels; a float64 state or a model the fused stage
              does not support raises.
 
     stages replaces a stage with another function, as tools/ablate.py takes
@@ -477,7 +458,16 @@ def make_slam_step(model, cfg: PHDConfig, slam: bool = True, kernels=None, stage
     stages = stages or {}
     normalise = stages.get("normalise", _normalise_resample)
     n_words = (cfg.estimate_cap + 31) // 32
-    packed = [None, None]  # the params seen last and their fused-kernel vector
+    packed = [None, None, None]  # the params seen last, their fused and association vectors
+
+    def pack(params):
+        # kept while every field but the depth map is the same tensor: the
+        # vectors hold no depth, and a params re-bound with a new depth map
+        # only is not packed again
+        last = packed[0]
+        if last is None or any(x is not y for x, y in zip(params[:-1], last[:-1])):
+            packed[:] = params, fused_kernel.pack_params(model, params), assoc_kernel.pack_params(model, params)
+        return packed
 
     def step(params, state, odometry, z, z_mask, motion_normals, resample_u, true_pose=None):
         f32 = state.pose.dtype == torch.float32
@@ -499,14 +489,8 @@ def make_slam_step(model, cfg: PHDConfig, slam: bool = True, kernels=None, stage
             if "correct" in stages:
                 predicted, corrected = stages["correct"](state.pose, state.maps, z, z_mask)
             elif use_fused:
-                # kept while every field but the depth map is the same
-                # tensor: the vector holds no depth, and a params re-bound
-                # with a new depth map only is not packed again
-                last = packed[0]
-                if last is None or any(x is not y for x, y in zip(params[:-1], last[:-1])):
-                    packed[:] = params, fused_kernel.pack_params(model, params)
                 predicted, corrected = fused_kernel.fused_stage(
-                    model, cfg, params, state.pose, state.maps, z, z_mask, packed[1]
+                    model, cfg, params, state.pose, state.maps, z, z_mask, pack(params)[1]
                 )
             else:
                 zl = [z[:, i] for i in range(model.meas_dim)]
@@ -524,8 +508,10 @@ def make_slam_step(model, cfg: PHDConfig, slam: bool = True, kernels=None, stage
             increment = stages["weight"](state.pose, predicted, corrected, z, z_mask)
         else:
             with record_function("phd.weight_inputs"):
+                assoc = assoc_kernel.pick(model, state.pose.dtype, kernels) is assoc_kernel.assoc_options
                 rest, base, od, wk, bk = weight_inputs(
-                    model, cfg, params, state.pose, predicted, corrected, z, z_mask, kernels
+                    model, cfg, params, state.pose, predicted, corrected, z, z_mask, kernels,
+                    pack(params)[2] if assoc else None,
                 )
             with record_function("phd.beam_scan"):
                 beam = beam_kernel.pick(od.dtype, kernels)
