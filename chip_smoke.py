@@ -27,10 +27,12 @@ Phases, one line each; any failure exits non-zero:
      same tolerances and each with its device time (in turns with the
      parent where the parent launches the shape), plain time, bound and
      phase split (the parent's too), Linear2D and Linear1D states at the
-     bench shape and the command line's capacity (K0=600, the live design):
-     PRM3D M=48 with the cap loose and binding, Linear2D M=33, Linear1D
-     M=20; and PRM3D at K0=600 M=180, K0=663 M=48 and K0=1000 M=64, which no
-     block layout holds (the parent raised); then the mixture likelihood
+     bench shape and the command line's capacity (K0=600): PRM3D M=48 with
+     the cap loose and binding, Linear2D M=33, Linear1D M=20; PRM3D at
+     K0=600 M=180, K0=663 M=48 and K0=1000 M=64; and the flagship's shape
+     (FLAGSHIP_FUSED: 100,000 particles, K0=128, M=48, the cap binding),
+     held to the plain version a chunk of particles at a time and not
+     timed in plain; then the mixture likelihood
      kernel (`mixture-check`, `mixture-shape`) against mixture_rest_plain
      to MIXTURE_RTOL of each particle's scale: on the edge cases of
      kernel_cases.MIXTURE_EDGES (no live slot, no valid row, singular
@@ -558,7 +560,7 @@ def phase_split(args, fk=fused_kernel):
     one launch with the phase clock probe; fk: this checkout's fused_kernel
     module or the parent's."""
     p, k0, m = args[4].logw.shape[0], args[4].capacity, args[5].shape[0]
-    names = fk.phases(k0, m) if hasattr(fk, "phases") else fk.PHASES
+    names = fk.PHASES
     clk = torch.zeros((p, len(names) + 1), dtype=torch.int64, device=args[3].device)
     fk.fused_stage(*args, phase_clock=clk)
     d = torch.diff(clk, dim=1).cpu().numpy()
@@ -587,9 +589,10 @@ def fused_turns(args, parent, reps):
     return ms, parent_ms, split
 
 
-def fused_row(name, mname, args, reps, parent, err):
-    """The row of one timed fused shape: design, sizes, device ms (in turns
-    with the parent where it launches), plain ms, bound, phase splits."""
+def fused_row(name, mname, args, reps, parent, err, plain=True):
+    """The row of one timed fused shape: sizes, device ms (in turns with the
+    parent where it launches), plain ms (plain=False: not timed), bound,
+    phase splits."""
     model, pcfg, params, pose, maps, z, z_mask = args
     pp, kk, mm = pose.shape[0], maps.capacity, z.shape[0]
     pred, cor = fused_kernel.fused_stage(*args)
@@ -598,13 +601,45 @@ def fused_row(name, mname, args, reps, parent, err):
     return dict(case=name, model=mname, shape=dict(P=pp, K0=kk, M=mm, KP=kk + mm), max_abs_err=err,
                 alive_out=int((cor.logw > DEAD / 2).sum().item()),
                 alive_in_max=int((maps.logw > DEAD / 2).sum(1).max().item()),
-                design=fused_kernel.design(kk, mm), smem_bytes=fused_kernel.smem_bytes(kk, mm),
+                smem_bytes=fused_kernel.smem_bytes(kk, mm),
                 workspace_floats=fused_kernel.workspace_floats(kk, mm),
                 ms=float(np.mean(ms)), ms_runs=ms,
                 parent_ms=None if parent_ms is None else float(np.mean(parent_ms)), parent_ms_runs=parent_ms,
                 parent_launches=None if parent is None else parent_ms is not None,
-                plain_ms=cuda_ms(lambda: fused_kernel.fused_stage_plain(*args), 2), bound_ms=bms, bound_by=by,
+                plain_ms=cuda_ms(lambda: fused_kernel.fused_stage_plain(*args), 2) if plain else None,
+                bound_ms=bms, bound_by=by,
                 cycles_median_max=phase_split(args), parent_cycles_median_max=parent_split)
+
+
+# The flagship deployment's fused shape (flagship-p100k): bench_flagship's
+# budget (K0 128, 48 slots, gate_top 8, 4 merge rounds) at 100,000 particles,
+# from a state whose cap binds (124 landmarks in 128 slots, as the cell's
+# 124-128 live components); the plain version takes a chunk of particles at
+# a time ([P, K, K] temporaries)
+FLAGSHIP_FUSED = (100_000, 124, 61)  # particles, landmarks, seed
+FLAGSHIP_PLAIN_CHUNK = 5_000
+
+
+def flagship_fused(dev, params, parent):
+    """The `fused-shape` row of the flagship's shape: the kernel against its
+    plain version chunk by chunk, then timed (in turns with the parent)."""
+    p, n_lm, seed = FLAGSHIP_FUSED
+    cfg = bench_flagship.flagship_config(p)
+    pose, maps, z, z_mask = warm_state(seed, p, cfg.max_components, cfg.max_measurements, n_lm, dev)
+    args = (PRM3D, cfg, params, pose, maps, z, z_mask)
+    pred, cor = fused_kernel.fused_stage(*args)
+    err = 0.0
+    for lo in range(0, p, FLAGSHIP_PLAIN_CHUNK):
+        rows = slice(lo, lo + FLAGSHIP_PLAIN_CHUNK)
+        part = lambda sgm: SGM(*[leaf[rows] for leaf in sgm])  # noqa: E731
+        ref = fused_kernel.fused_stage_plain(PRM3D, cfg, params, pose[rows], part(maps), z, z_mask)
+        err = max(err, compare_fused(part(pred), part(cor), *ref))
+    row = fused_row(f"flagship-P{p}-K{cfg.max_components}-M{cfg.max_measurements}-cap-binds", "PRM3D", args,
+                    10, parent, err, plain=False)
+    say("fused-shape", **row)
+    say("fused-phases", case=row["case"], cycles_median_max=row["cycles_median_max"],
+        parent_cycles_median_max=row["parent_cycles_median_max"])
+    return row
 
 
 # csrc/'s shape decisions, copied in Python (fused_kernel.layout_bytes /
@@ -699,14 +734,13 @@ def fused_phase(dev, parent):
     kp = k0 + m
     bms, by = fused_bound(p, k0, m, 3, 7, maps, pred, z_mask, cor, params)
     say("fused", ms=ms, parent_ms=parent_ms, wrapper_ms=w_ms, plain_ms=plain_ms, max_abs_err=err,
-        smem_bytes=fused_kernel.smem_bytes(k0, m), design=fused_kernel.design(k0, m),
-        shape=dict(P=p, K0=k0, M=m, KP=kp))
+        smem_bytes=fused_kernel.smem_bytes(k0, m), shape=dict(P=p, K0=k0, M=m, KP=kp))
 
-    # the other families, and the command line's capacity (K0 = 600, the
-    # live design) and beyond it: K0 = 600 with 180 slots (a 172-landmark
-    # world), K0 = 663 and K0 = 1000, which no block layout holds; each state
-    # vs the plain version, then device ms (in turns with the parent where
-    # it launches), plain ms, bound and phase split at that shape
+    # the other families, and the command line's capacity (K0 = 600) and
+    # beyond it: K0 = 600 with 180 slots (a 172-landmark world), K0 = 663 and
+    # K0 = 1000; each state vs the plain version, then device ms (in turns
+    # with the parent where it launches), plain ms, bound and phase split at
+    # that shape; then the flagship deployment's shape
     cli = PHDConfig(num_particles=p)  # the command line's default: K=600, gate_top 16, 8 rounds
     bind = PHDConfig(num_particles=32)
     shapes = [
@@ -737,6 +771,8 @@ def fused_phase(dev, parent):
             say("fused-phases", case=name, cycles_median_max=row["cycles_median_max"],
                 parent_cycles_median_max=row["parent_cycles_median_max"])
         extra.append({k: v for k, v in row.items() if not k.endswith("_runs") and "cycles" not in k})
+    row = flagship_fused(dev, params, parent)
+    extra.append({k: v for k, v in row.items() if not k.endswith("_runs") and "cycles" not in k})
     row = dict(name="fused_stage", route="cuda", source="monorfs_tpu_torch/csrc/fused_stage.cu",
                replaces="monorfs_tpu/slam/fused_pallas.py:621", max_abs_err=err, ms=float(np.mean(ms)),
                wrapper_ms=w_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
@@ -1127,9 +1163,8 @@ def cli_phase(dev, kernels, tmp):
         for k, n in launches.items():
             total[k] += n
     # a 3D world of CLI180_LANDMARKS landmarks (sim3d.world's 40 and seeded
-    # ones inside their bounding box): 188 measurement slots, past what the
-    # fused kernel's block layout held at the default MaxQuantity of 600 (the
-    # live design takes it), and a beam of 188 steps; cut to CLI180_FRAMES
+    # ones inside their bounding box): 188 measurement slots at the default
+    # MaxQuantity of 600, and a beam of 188 steps; cut to CLI180_FRAMES
     world = World.from_file(assets / "sim3d.world")
     lm = np.asarray(world.landmarks)
     more = np.random.default_rng(CLI180_LANDMARKS).uniform(lm.min(0), lm.max(0), (CLI180_LANDMARKS - len(lm), 3))
@@ -1139,8 +1174,7 @@ def cli_phase(dev, kernels, tmp):
                              ["-f", str(tmp / "sim3d-180.world"), "-c", str(assets / "mov3d.in"), "-a", "phd",
                               "-p", "200", "--frames", str(CLI180_FRAMES)],
                              CLI180_FRAMES, (1, 1), *CLI_RUNS[0][-2:], tmp / "3d-180.zip")  # the 3D run's limits
-    say("cli-180", landmarks=CLI180_LANDMARKS, measurement_slots=CLI180_LANDMARKS + 8, frames=CLI180_FRAMES,
-        fused_design=fused_kernel.design(PHDConfig().max_components, CLI180_LANDMARKS + 8))
+    say("cli-180", landmarks=CLI180_LANDMARKS, measurement_slots=CLI180_LANDMARKS + 8, frames=CLI180_FRAMES)
     for k, n in launches.items():
         total[k] += n
     # replay the 3D recording through dead reckoning: its trajectory is the

@@ -19,50 +19,60 @@
 //             merge_rounds synchronous leader rounds, moments pooled about
 //             the leader's mean.
 //
-// Bound on the H100: on paper, operations (~67 M fp32 operations this data
-// needs at the bench warm state, ~1 us at 67 TFLOP/s; ~3.3 MB moved, ~1 us
-// at 3.35 TB/s). In practice, latency: 200 blocks, one per particle, each a
-// chain of phases separated by barriers, so a phase costs its longest
-// serial chain.
+// Bound on the H100: on paper, operations at the flagship's shape (P =
+// 100,000, K0 = 128, M = 48, the cap binding: ~1.1 ms of fp32 work at 67
+// TFLOP/s) and bytes at the command line's (pred's copy of the map and
+// cor's fill, ~4.4 us at K0 = 600, P = 200). In practice, latency: one
+// block of 256 threads per particle, each a chain of phases separated by
+// barriers, so a phase costs its longest serial chain, and the waves of
+// blocks (three an SM) follow one another.
 //
-// Two designs, one block of 256 threads per particle in both. The block
-// design (fused_stage_kernel, for the shapes whose layout fits a block's
-// shared memory: K0 = 128 on the bench, the smoother and the scaling runs)
-// keeps the predicted mixture, the per-component EKF channels, the [M, KP]
-// pair log-weights and the K x K `lower` merge relation (as bitmask words)
-// in shared memory. The live design (fused_stage_kernel_live, below: K0 =
-// 500-1000, the command line and the grids) works on the live components
-// only; its note is beside it. The model-specific
-// parts (pose -> frame, back-projection, measurement and its landmark
-// Jacobian, fuzzy visibility, the measurement dimension D) are a template
-// parameter, one instantiation per family (csrc/model_policy.cuh). Gathers are indices, not one-hot
-// products. Every phase uses the whole block, and
-// no thread runs a serial loop over K or KP:
+// The design works on the live components only. A filter's map holds a few
+// dozen to K0 live components of K0 slots, so a block first lists its live
+// input components (logw > ALIVE_THRESHOLD) in component order and runs
+// every phase over the N = L + M local components (L live, then the M birth
+// candidates) and the O = min(K0, survivors) output slots, never over K0:
+// dead slots give nothing to the births' density (masked there), their
+// misses and pairs sit at DEAD under any tau, and a list in component order
+// keeps the misses' order and the pairs' (weight desc, index asc) order.
+// pred's map part is the input copied as it stands; cor's tail takes the
+// plain version's fill. The model-specific parts (pose -> frame,
+// back-projection, measurement and its landmark Jacobian, fuzzy visibility,
+// the measurement dimension D) are a template parameter, one instantiation
+// per family (csrc/model_policy.cuh). Gathers are indices, not one-hot
+// products. Every phase uses the whole block, and no thread runs a serial
+// loop over N:
 //   births, pairs   warp per measurement row, lanes over components, warp sums;
-//   EKF             thread per live component (one pass: its cost is one
+//   EKF             thread per local component (one pass: its cost is one
 //                   component's dependent chain, which more threads would
 //                   not shorten); pairs compute a likelihood only in gate;
-//   cut             each thread keeps its entries (~15) in registers; a
-//                   bisection count is a register pass, a warp reduction and
-//                   one barrier (partials double-buffered);
+//   cut             the entries above lo (the rest never count for a
+//                   threshold >= lo) compacted into one list whose head sits
+//                   in registers; a bisection count is a register pass, a
+//                   warp reduction and one barrier (partials double-buffered);
 //   compaction      misses by a block-wide ballot prefix scan, row offsets by
 //                   a warp scan; each row's survivors gathered by one warp
 //                   (ballot prefix) and ranked against each other, so a row
-//                   costs its survivors squared over 32 lanes, not KP each;
-//   merge relation  live components ranked (weight desc, index asc); one
-//                   warp per member, its lanes over the heavier ranks only,
-//                   so half of the K x K tests are never made; a hit sets
-//                   its bit with atomicOr;
+//                   costs its survivors squared over 32 lanes, not N each;
+//   merge relation  the O slots ranked (weight desc, index asc); one warp per
+//                   member, its lanes over the heavier ranks only, so half of
+//                   the O x O tests are never made; a hit sets its bit with
+//                   atomicOr;
 //   pooling         each leader walks its member bits (set by atomicOr,
 //                   which is order-free), members in index order.
-// Cycles per block at the bench warm state (median over blocks, measured):
-// births ~11 k, EKF ~5 k, pairs ~8.7 k, cut ~2.2 k (~15 k when the cap
-// binds), compaction ~8.5 k, merge relation ~20 k (ranking ~5 k, tests
-// ~14 k: issue-bound where two blocks share an SM), leader rounds ~4 k,
-// pooling ~7.8 k; ~68 k in all. Every elementwise formula
-// follows the plain version's operation order, and the build uses
-// -fmad=false, so the two differ only where a reduction sums in another
-// order.
+//
+// Tables are placed per block: each goes to a shared arena of LIVE_ARENA
+// words while it fits (stage A grows up from the arena's start: z, the
+// predicted mixture, the EKF channels, the pair table; the output slots
+// grow down from its end; the merge tables reuse stage A's room), else to
+// the block's slot of a per-particle device-memory workspace sized for
+// N = K0 + M and O = K0 (LiveWs). So every (K0, M) launches, with shared
+// memory that does not grow with K0: three blocks an SM (72 KB each, at
+// most 80 registers a thread). chip_smoke.py prints the cycles of each
+// phase (the clk probe). Every elementwise formula follows the plain
+// version's operation order, and the build uses -fmad=false, so the two
+// differ only where a reduction sums in another order: the births' density
+// and the pairs' weight sum, split across lanes.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -80,45 +90,11 @@ constexpr float LOG2PI3 = (float)(3.0 * 1.8378770664093453);
 constexpr int THREADS = 256;
 constexpr int NWARPS = THREADS / 32;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int CUT_REGS = 16;  // cut entries a thread keeps in registers
 
 // parameter vector layout (fused_kernel.pack_params): 7 scalars, the
 // visibility ramp [D], the measurement covariance [D, D], the birth
 // covariance [3, 3]
 enum { P_PD = 0, P_CLUTTER, P_BIRTH_W, P_MIN_W, P_MERGE, P_EXPLORE, P_RADIUS, P_RAMP = 7 };
-
-// shared-memory layout, in 4-byte words
-struct Layout {
-  int K, M, KP, NWK;
-  size_t prm, pm, ekf, z, zl, bp, rowcnt, rowoff, cpair, om, oc, olw, fill,
-      inv, w, lead, isl, bits, lbits, scratch, total;
-  __host__ __device__ Layout(int K0, int M_) {
-    K = K0; M = M_; KP = K0 + M_; NWK = (K0 + 31) / 32;
-    size_t o = 0;
-    prm = o; o += 32;
-    pm = o; o += 10 * (size_t)KP;     // predicted mixture: mean 3, cov 6, logw
-    ekf = o; o += 30 * (size_t)KP;    // h 3, sinv 9, slogm, gain 9, covu 6,
-                                      // logpd, cmiss (births: inv0 9, logmult0)
-    z = o; o += 3 * (size_t)M;
-    zl = o; o += M;
-    bp = o; o += 3 * (size_t)M;       // back-projections
-    rowcnt = o; o += M;
-    rowoff = o; o += M;
-    cpair = o; o += (size_t)M * KP;   // pair log-weights [M][KP]
-    om = o; o += 3 * (size_t)K;       // compacted survivors
-    oc = o; o += 6 * (size_t)K;
-    olw = o; o += K;
-    fill = o; o += K;
-    inv = o; o += 9 * (size_t)K;
-    w = o; o += K;
-    lead = o; o += K;
-    isl = o; o += K;
-    bits = o; o += (size_t)K * NWK;   // lower(i, k) bits, row k = member
-    lbits = o; o += NWK;
-    scratch = o; o += 64;
-    total = o;
-  }
-};
 
 // Phase clock probe: with clk set, thread 0 of each block writes clock64()
 // at entry and after the barrier that ends each of the NPHASE phases.
@@ -210,569 +186,7 @@ __device__ __forceinline__ void invn(const float (&a)[D][D], float dt, float (&o
   }
 }
 
-template <class Mdl>
-__global__ void __launch_bounds__(THREADS)
-fused_stage_kernel(const float* __restrict__ prm_g, const float* __restrict__ pose_g,
-                   const float* __restrict__ maps, const float* __restrict__ zg,
-                   const int* __restrict__ zmask, int zmask_stride, float* __restrict__ pred,
-                   float* __restrict__ cor, int P, int K0, int M,
-                   int gate_top, int merge_rounds, ModelParams mp, long long* clk) {
-  extern __shared__ float sm[];
-  probe(clk, 0);
-  constexpr int D = Mdl::D;
-  constexpr int P_R = P_RAMP + D, P_BC = P_R + D * D, NPRM = P_BC + 9;
-  constexpr float LOG2PID = (float)(D * 1.8378770664093453);
-  const Layout L(K0, M);
-  const int KP = L.KP, K = L.K, NWK = L.NWK;
-  const int p = blockIdx.x, t = threadIdx.x, lane = t & 31, warp = t >> 5;
-
-  float* prm = sm + L.prm;
-  float* pm = sm + L.pm;
-  float* h = sm + L.ekf;
-  float* sinv = h + 3 * KP;   // [D * D][KP]
-  float* slogm = h + 12 * KP;
-  float* gain = h + 13 * KP;  // [3 * D][KP]
-  float* covu = h + 22 * KP;
-  float* logpd = h + 28 * KP;
-  float* cmiss = h + 29 * KP;
-  float* inv0 = h;             // births only: [9][K0], then logmult0 [K0]
-  float* logmult0 = h + 9 * K0;
-  float* zs = sm + L.z;
-  float* zl = sm + L.zl;
-  float* bp = sm + L.bp;
-  int* rowcnt = reinterpret_cast<int*>(sm + L.rowcnt);
-  int* rowoff = reinterpret_cast<int*>(sm + L.rowoff);
-  float* cpair = sm + L.cpair;
-  float* om = sm + L.om;
-  float* oc = sm + L.oc;
-  float* olw = sm + L.olw;
-  int* fill = reinterpret_cast<int*>(sm + L.fill);
-  float* inv = sm + L.inv;
-  float* wt = sm + L.w;
-  int* lead = reinterpret_cast<int*>(sm + L.lead);
-  int* isl = reinterpret_cast<int*>(sm + L.isl);
-  uint32_t* bits = reinterpret_cast<uint32_t*>(sm + L.bits);
-  uint32_t* lbits = reinterpret_cast<uint32_t*>(sm + L.lbits);
-  float* fscratch = sm + L.scratch;
-  int* iscratch = reinterpret_cast<int*>(sm + L.scratch + 32);
-
-  typename Mdl::Frame fr;
-  Mdl::frame(pose_g + (size_t)p * Mdl::S, fr);
-
-  // ---- measurements and back-projections (to_map_soa) ----------------------
-  for (int i = t; i < NPRM; i += THREADS) prm[i] = prm_g[i];
-  for (int j = t; j < M; j += THREADS) {
-    float zj[D], b[3];
-    for (int i = 0; i < D; ++i) {
-      zj[i] = zg[j * D + i];
-      zs[i * M + j] = zj[i];
-    }
-    zl[j] = zmask[(size_t)p * zmask_stride + j] != 0 ? 1.f : 0.f;  // row p, or the shared row
-    Mdl::to_map(mp, fr, zj, b);
-    for (int i = 0; i < 3; ++i) bp[i * M + j] = b[i];
-  }
-  __syncthreads();
-  const float lminw = jmax(logf(prm[P_MIN_W]), -80.f);
-  const float* Rm = prm + P_R;
-  const float* ramp = prm + P_RAMP;
-
-  // ---- predicted mixture: the map, then birth candidates ----------------------
-  for (int k = t; k < KP; k += THREADS) {
-    if (k < K0) {
-      float c6[6], a[3][3], o[3][3];
-      for (int c = 0; c < 10; ++c) {
-        const float v = maps[((size_t)c * P + p) * K0 + k];
-        pm[c * KP + k] = v;
-        if (c >= 3 && c < 9) c6[c - 3] = v;
-      }
-      sym_to_mat(c6, a);
-      const float dt = det3(a);
-      inv3(a, dt, o);
-      for (int i = 0; i < 9; ++i) inv0[i * K0 + k] = o[i / 3][i % 3];
-      logmult0[k] = -0.5f * (LOG2PI3 + logf(dt));
-    } else {
-      const int j = k - K0;
-      const float* bc = prm + P_BC;
-      for (int i = 0; i < 3; ++i) pm[i * KP + k] = bp[i * M + j];
-      pm[3 * KP + k] = bc[0]; pm[4 * KP + k] = bc[1]; pm[5 * KP + k] = bc[2];
-      pm[6 * KP + k] = bc[4]; pm[7 * KP + k] = bc[5]; pm[8 * KP + k] = bc[8];
-    }
-  }
-  __syncthreads();
-
-  // ---- births: local density at each back-projection -------------------------
-  {
-    const float r3 = 3.0f * prm[P_RADIUS];
-    for (int j = warp; j < M; j += NWARPS) {
-      float acc = 0.f;
-      for (int k = lane; k < K0; k += 32) {
-        const float lw = pm[9 * KP + k];
-        float d[3], a[3][3];
-        for (int i = 0; i < 3; ++i) d[i] = bp[i * M + j] - pm[i * KP + k];
-        for (int i = 0; i < 9; ++i) a[i / 3][i % 3] = inv0[i * K0 + k];
-        const float logp = logmult0[k] - 0.5f * quadform(d, a);
-        const float dist2 = dot3(d[0], d[0], d[1], d[1], d[2], d[2]);
-        if (lw > ALIVE_THRESHOLD && dist2 <= r3 * r3) acc += expf(lw + logp);
-      }
-      const float density = warp_sum(acc);
-      if (lane == 0)
-        pm[9 * KP + K0 + j] =
-            (zl[j] > 0.5f && density < prm[P_EXPLORE]) ? logf(prm[P_BIRTH_W]) : DEAD;
-    }
-  }
-  __syncthreads();
-  probe(clk, 1);
-  for (int i = t; i < 10 * KP; i += THREADS) {
-    const int c = i / KP, k = i - c * KP;
-    pred[((size_t)c * P + p) * KP + k] = pm[i];
-  }
-  probe(clk, 2);
-
-  // ---- EKF precompute per predicted component ---------------------------------
-  for (int k = t; k < KP; k += THREADS) {
-    const float lw = pm[9 * KP + k];
-    const bool alive = lw > ALIVE_THRESHOLD;
-    if (!alive) {  // a dead component is never gated: only its miss is read
-      cmiss[k] = DEAD;
-      continue;
-    }
-    float c6[6], cv[3][3];
-    for (int i = 0; i < 6; ++i) c6[i] = pm[(3 + i) * KP + k];
-    sym_to_mat(c6, cv);
-    const float mk[3] = {pm[k], pm[KP + k], pm[2 * KP + k]};
-    float hk[D], hj[D][3];
-    Mdl::measure(mp, fr, mk, hk, hj);
-    float pdk = alive ? Mdl::fuzzy(mp, ramp, hk) * prm[P_PD] : 0.f;
-    pdk = jmin(jmax(pdk, 0.f), PD_MAX);
-    const float miss = alive ? lw + log1pf(-pdk) : DEAD;
-
-    float pht[3][D], s[D][D], si[D][D], g[3][D], ikh[3][3], a[3][3];
-    for (int i = 0; i < 3; ++i)
-      for (int j = 0; j < D; ++j)
-        pht[i][j] = dot3(cv[i][0], hj[j][0], cv[i][1], hj[j][1], cv[i][2], hj[j][2]);
-    for (int i = 0; i < D; ++i)
-      for (int j = 0; j < D; ++j)
-        s[i][j] = dot3(hj[i][0], pht[0][j], hj[i][1], pht[1][j], hj[i][2], pht[2][j]) +
-                  Rm[i * D + j];
-    const float det_s = detn<D>(s);
-    invn<D>(s, det_s, si);
-    for (int i = 0; i < 3; ++i)
-      for (int j = 0; j < D; ++j) {
-        float acc = pht[i][0] * si[0][j];
-        for (int c = 1; c < D; ++c) acc = acc + pht[i][c] * si[c][j];
-        g[i][j] = acc;
-      }
-    for (int i = 0; i < 3; ++i)
-      for (int j = 0; j < 3; ++j) {
-        float acc = g[i][0] * hj[0][j];
-        for (int c = 1; c < D; ++c) acc = acc + g[i][c] * hj[c][j];
-        ikh[i][j] = (i == j ? 1.f : 0.f) - acc;
-      }
-    for (int i = 0; i < 3; ++i)
-      for (int j = 0; j < 3; ++j)
-        a[i][j] = dot3(ikh[i][0], cv[0][j], ikh[i][1], cv[1][j], ikh[i][2], cv[2][j]);
-    const int up[6][2] = {{0, 0}, {0, 1}, {0, 2}, {1, 1}, {1, 2}, {2, 2}};
-    for (int i = 0; i < 6; ++i) {
-      const float v = 0.5f * (a[up[i][0]][up[i][1]] + a[up[i][1]][up[i][0]]);
-      covu[i * KP + k] = isfinite(v) ? v : 0.f;
-    }
-    for (int i = 0; i < D; ++i) h[i * KP + k] = hk[i];
-    for (int i = 0; i < D * D; ++i) sinv[i * KP + k] = si[i / D][i % D];
-    for (int i = 0; i < 3 * D; ++i) gain[i * KP + k] = g[i / D][i % D];
-    slogm[k] = -0.5f * (LOG2PID + logf(det_s));
-    logpd[k] = logf(jmax(pdk, 1e-30f));
-    cmiss[k] = miss >= lminw ? miss : DEAD;
-  }
-  __syncthreads();
-  probe(clk, 3);
-
-  // ---- gated pair log-weights, normalised per measurement ----------------------
-  {
-    const float r2 = prm[P_RADIUS] * prm[P_RADIUS];
-    for (int j = warp; j < M; j += NWARPS) {
-      const bool zlive = zl[j] > 0.5f;
-      float acc = 0.f;
-      for (int k = lane; k < KP; k += 32) {
-        const float lw = pm[9 * KP + k];
-        float d[3];
-        for (int i = 0; i < 3; ++i) d[i] = bp[i * M + j] - pm[i * KP + k];
-        const bool gate = dot3(d[0], d[0], d[1], d[1], d[2], d[2]) <= r2 &&
-                          lw > ALIVE_THRESHOLD && zlive;
-        float ln = DEAD;
-        if (gate) {  // the likelihood only where it is read
-          float in[D], a[D][D];
-          for (int i = 0; i < D; ++i) in[i] = zs[i * M + j] - h[i * KP + k];
-          for (int i = 0; i < D * D; ++i) a[i / D][i % D] = sinv[i * KP + k];
-          float q = slogm[k] - 0.5f * quadn<D>(in, a);
-          if (!isfinite(q)) q = DEAD;
-          ln = logpd[k] + lw + q;
-          acc += expf(ln);
-        }
-        cpair[j * KP + k] = ln;
-      }
-      // out-of-gate entries hold DEAD and stay below lminw after the shift
-      const float lden = logf(prm[P_CLUTTER] + warp_sum(acc));
-      for (int k = lane; k < KP; k += 32) {
-        const float u = cpair[j * KP + k] - lden;
-        cpair[j * KP + k] = u >= lminw ? u : DEAD;
-      }
-    }
-  }
-  __syncthreads();
-  probe(clk, 4);
-
-  // ---- MaxQuantity cut: bisect for tau ------------------------------------------
-  // Each thread's entries (misses, then pairs, strided by THREADS) sit in
-  // registers, the first CUT_REGS of them; a count is a register pass, a
-  // warp reduction and one barrier (per-warp partials double-buffered).
-  const int npair = M * KP;
-  const int nall = KP + npair;
-  auto entry = [&](int i) {
-    return i < KP ? cmiss[i] : (i < nall ? cpair[i - KP] : -INFINITY);
-  };
-  float tau;
-  {
-    const float lo = (0.f + lminw) - 1.0f;
-    float mine[CUT_REGS];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int r = 0; r < CUT_REGS; ++r) {
-      mine[r] = entry(t + r * THREADS);
-      mx = fmaxf(mx, mine[r]);
-    }
-    for (int i = t + CUT_REGS * THREADS; i < nall; i += THREADS) mx = fmaxf(mx, entry(i));
-    const float hi = jmax(block_max(mx, fscratch), lo + 1e-3f);
-    int* part = iscratch;  // [2][NWARPS]
-    auto count_above = [&](float th, int buf) {
-      int c = 0;
-#pragma unroll
-      for (int r = 0; r < CUT_REGS; ++r) c += mine[r] > th;
-      for (int i = t + CUT_REGS * THREADS; i < nall; i += THREADS) c += entry(i) > th;
-      c = __reduce_add_sync(FULL, c);
-      if (lane == 0) part[buf * NWARPS + warp] = c;
-      __syncthreads();
-      int total = 0;
-      for (int w = 0; w < NWARPS; ++w) total += part[buf * NWARPS + w];
-      return total;
-    };
-    tau = lo;
-    if (count_above(lo, 0) > K) {  // the cap binds (uniform across the block)
-      float lo_b = lo, hi_b = hi;
-      for (int it = 0; it < 30; ++it) {
-        const float mid = 0.5f * (lo_b + hi_b);
-        const bool over = count_above(mid, (it + 1) & 1) > K;
-        lo_b = over ? mid : lo_b;
-        hi_b = over ? hi_b : mid;
-      }
-      tau = hi_b;
-    }
-  }
-  probe(clk, 5);
-
-  // ---- compaction ----------------------------------------------------------------
-  // isl[slot] holds the pair (j * KP + k) a slot takes, -1 for a miss or none
-  for (int i = t; i < K; i += THREADS) {
-    for (int c = 0; c < 3; ++c) om[c * K + i] = 0.f;
-    for (int c = 0; c < 6; ++c) oc[c * K + i] = 0.f;
-    olw[i] = DEAD;
-    fill[i] = 0;
-    isl[i] = -1;
-  }
-  __syncthreads();
-  int n_miss = 0;  // misses: block-wide ballot prefix scan in component order
-  for (int base = 0; base < KP; base += THREADS) {
-    const int k = base + t;
-    const bool keep = k < KP && cmiss[k] > tau;
-    const uint32_t bal = __ballot_sync(FULL, keep);
-    if (lane == 0) iscratch[16 + warp] = __popc(bal);
-    __syncthreads();
-    int slot = n_miss + __popc(bal & ((1u << lane) - 1u));
-    for (int w = 0; w < NWARPS; ++w) {
-      const int c = iscratch[16 + w];
-      slot += w < warp ? c : 0;
-      n_miss += c;
-    }
-    if (keep && slot < K) {
-      for (int c = 0; c < 9; ++c) {
-        const float v = pm[c * KP + k];
-        (c < 3 ? om[c * K + slot] : oc[(c - 3) * K + slot]) = isfinite(v) ? v : 0.f;
-      }
-      olw[slot] = cmiss[k];
-      fill[slot] = 1;
-    }
-    __syncthreads();
-  }
-  for (int j = warp; j < M; j += NWARPS) {  // survivors per measurement row
-    int cnt = 0;
-    for (int base = 0; base < KP; base += 32) {
-      const int k = base + lane;
-      cnt += __popc(__ballot_sync(FULL, k < KP && cpair[j * KP + k] > tau));
-    }
-    if (lane == 0) rowcnt[j] = cnt < gate_top ? cnt : gate_top;
-  }
-  __syncthreads();
-  if (warp == 0) {  // row offsets: exclusive warp scan, 32 rows a pass
-    int carry = 0;
-    for (int base = 0; base < M; base += 32) {
-      const int j = base + lane;
-      const int v = j < M ? rowcnt[j] : 0;
-      int incl = v;
-      for (int o = 1; o < 32; o <<= 1) {
-        const int u = __shfl_up_sync(FULL, incl, o);
-        incl += lane >= o ? u : 0;
-      }
-      if (j < M) rowoff[j] = carry + incl - v;
-      carry += __shfl_sync(FULL, incl, 31);
-    }
-  }
-  __syncthreads();
-  // each row's survivors in (weight desc, index asc) order: one warp per
-  // row gathers them (ballot prefix) into a per-warp list in the inv, w and
-  // lead regions (free until the merge), and each ranks itself against the
-  // list; a row with more survivors than the list holds ranks each against
-  // the whole row
-  {
-    const int room = 11 * K / (2 * NWARPS);
-    const int cap = room < 32 ? room : 32;
-    float* sv = inv + warp * 2 * cap;
-    int* sk = reinterpret_cast<int*>(sv + cap);
-    for (int j = warp; j < M; j += NWARPS) {
-      const int take = rowcnt[j];
-      if (take == 0) continue;
-      const float* row = cpair + j * KP;
-      const int first = n_miss + rowoff[j];
-      auto place = [&](float v, int k, int r) {
-        const int slot = first + r;
-        if (r < take && slot < K) {
-          isl[slot] = j * KP + k;
-          olw[slot] = v;
-          fill[slot] = 1;
-        }
-      };
-      int n = 0;
-      for (int base = 0; base < KP; base += 32) {
-        const int k = base + lane;
-        const float v = k < KP ? row[k] : -INFINITY;
-        const bool keep = v > tau;
-        const uint32_t bal = __ballot_sync(FULL, keep);
-        const int pos = n + __popc(bal & ((1u << lane) - 1u));
-        if (keep && pos < cap) {
-          sv[pos] = v;
-          sk[pos] = k;
-        }
-        n += __popc(bal);
-      }
-      __syncwarp();
-      if (n <= cap) {
-        if (lane < n) {
-          const float v = sv[lane];
-          int r = 0;
-          for (int u = 0; u < n; ++u) {
-            const float x = sv[u];
-            r += (x > v) || (x == v && u < lane);
-          }
-          place(v, sk[lane], r);
-        }
-      } else {
-        for (int k = lane; k < KP; k += 32) {
-          const float v = row[k];
-          if (!(v > tau)) continue;
-          int r = 0;
-          for (int u = 0; u < KP; ++u) r += (row[u] > v) || (row[u] == v && u < k);
-          place(v, k, r);
-        }
-      }
-      __syncwarp();
-    }
-  }
-  __syncthreads();
-  for (int slot = t; slot < K; slot += THREADS) {  // the pair survivors' moments
-    const int f = isl[slot];
-    if (f < 0) continue;
-    const int j = f / KP, k = f - j * KP;
-    float in[D];
-    for (int c = 0; c < D; ++c) in[c] = zs[c * M + j] - h[c * KP + k];
-    for (int i = 0; i < 3; ++i) {
-      float gd = gain[(D * i) * KP + k] * in[0];
-      for (int c = 1; c < D; ++c) gd = gd + gain[(D * i + c) * KP + k] * in[c];
-      const float mu = pm[i * KP + k] + gd;
-      om[i * K + slot] = isfinite(mu) ? mu : 0.f;
-    }
-    for (int c = 0; c < 6; ++c) oc[c * K + slot] = covu[c * KP + k];
-  }
-  __syncthreads();
-  probe(clk, 6);
-
-  // ---- greedy weight-ordered merge ----------------------------------------------
-  for (int i = t; i < K; i += THREADS) {
-    float c6[6], a[3][3], o[3][3];
-    for (int c = 0; c < 6; ++c) c6[c] = oc[c * K + i];
-    sym_to_mat(c6, a);
-    inv3(a, det3(a), o);
-    for (int c = 0; c < 9; ++c) inv[c * K + i] = o[c / 3][c % 3];
-    wt[i] = fill[i] ? expf(olw[i]) : 0.f;
-    isl[i] = fill[i];
-  }
-  for (int i = t; i < K * NWK; i += THREADS) bits[i] = 0u;
-  __syncthreads();
-  // live components in (weight desc, index asc) order: lead[rank] = index
-  int n_live = 0;
-  for (int base = 0; base < K; base += THREADS) {
-    const int i = base + t;
-    const bool live = i < K && fill[i];
-    if (live) {
-      const float w = wt[i];
-      int r = 0;
-#pragma unroll 8
-      for (int u = 0; u < K; ++u) {  // branch-free, so the loads pipeline
-        const float wu = wt[u];
-        r += (fill[u] != 0) & ((wu > w) | ((wu == w) & (u < i)));
-      }
-      lead[r] = i;
-    }
-    n_live += __syncthreads_count(live);
-  }
-  // rank-ordered copies of the means and metrics (in the EKF region, free
-  // after the compaction), so lanes over consecutive ranks read distinct banks
-  float* rmean = h;           // [3][K]
-  float* rinv = h + 3 * K;    // [9][K]
-  for (int q = t; q < n_live; q += THREADS) {
-    const int i = lead[q];
-    for (int c = 0; c < 3; ++c) rmean[c * K + q] = om[c * K + i];
-    for (int c = 0; c < 9; ++c) rinv[c * K + q] = inv[c * K + i];
-  }
-  __syncthreads();
-  // lower(i, k) = i heavier than k, both live, within the merge distance of
-  // i's metric: one warp per member k, its lanes over the heavier ranks
-  // only; a hit sets its bit with atomicOr (order-free, so exact)
-  const float thr2 = prm[P_MERGE] * prm[P_MERGE];
-  for (int a = warp; a < n_live; a += NWARPS) {
-    const int k = lead[a];
-    const float mk[3] = {rmean[a], rmean[K + a], rmean[2 * K + a]};
-    for (int q = lane; q < a; q += 32) {
-      float d[3], m[3][3];
-      for (int c = 0; c < 3; ++c) d[c] = mk[c] - rmean[c * K + q];
-      for (int c = 0; c < 9; ++c) m[c / 3][c % 3] = rinv[c * K + q];
-      if (quadform(d, m) < thr2) {
-        const int i = lead[q];
-        atomicOr(&bits[k * NWK + (i >> 5)], 1u << (i & 31));
-      }
-    }
-  }
-  __syncthreads();
-  probe(clk, 7);
-  for (int round = 0; round <= merge_rounds; ++round) {
-    for (int base = warp * 32; base < NWK * 32; base += THREADS) {
-      const int k = base + lane;
-      const uint32_t b = __ballot_sync(FULL, k < K && isl[k]);
-      if (lane == 0) lbits[base >> 5] = b;
-    }
-    __syncthreads();
-    if (round == merge_rounds) break;
-    for (int k = t; k < K; k += THREADS) {
-      bool conflict = false;
-      for (int wi = 0; wi < NWK; ++wi) conflict |= (bits[k * NWK + wi] & lbits[wi]) != 0u;
-      isl[k] = fill[k] && !conflict;
-    }
-    __syncthreads();
-  }
-  for (int k = t; k < K; k += THREADS) {  // heaviest eligible leader, lowest index on ties
-    int best = k;
-    float mw = -1.f;
-    for (int wi = 0; wi < NWK; ++wi) {
-      uint32_t e = bits[k * NWK + wi] & lbits[wi];
-      while (e) {
-        const int b = __ffs(e) - 1;
-        e &= e - 1u;
-        const int i = wi * 32 + b;
-        if (wt[i] > mw) {
-          mw = wt[i];
-          best = i;
-        }
-      }
-    }
-    lead[k] = best;
-  }
-  __syncthreads();
-  probe(clk, 8);
-  // member words: bit k of row i set when live k follows leader i (the
-  // relation's words are free again); OR is order-free, so this is exact
-  for (int i = t; i < K * NWK; i += THREADS) bits[i] = 0u;
-  __syncthreads();
-  for (int k = t; k < K; k += THREADS)
-    if (fill[k]) atomicOr(&bits[lead[k] * NWK + (k >> 5)], 1u << (k & 31));
-  __syncthreads();
-  for (int i = t; i < K; i += THREADS) {  // moments pooled about the leader mean
-    float acc[16];
-    for (int c = 0; c < 16; ++c) acc[c] = 0.f;
-    if (isl[i]) {
-      for (int wi = 0; wi < NWK; ++wi) {  // members in index order
-        uint32_t e = bits[i * NWK + wi];
-        while (e) {
-          const int k = wi * 32 + __ffs(e) - 1;
-          e &= e - 1u;
-          const float w = wt[k];
-          float dv[3];
-          for (int a = 0; a < 3; ++a) dv[a] = om[a * K + k] - om[a * K + i];
-          acc[0] += w;
-          for (int a = 0; a < 3; ++a) acc[1 + a] += w * dv[a];
-          acc[4] += w * dv[0] * dv[0];
-          acc[5] += w * dv[0] * dv[1];
-          acc[6] += w * dv[0] * dv[2];
-          acc[7] += w * dv[1] * dv[1];
-          acc[8] += w * dv[1] * dv[2];
-          acc[9] += w * dv[2] * dv[2];
-          for (int c = 0; c < 6; ++c) acc[10 + c] += w * oc[c * K + k];
-        }
-      }
-    }
-    const bool out_alive = isl[i] && acc[0] > 0.f;
-    const float safe = jmax(acc[0], 1e-30f);
-    const float dm[3] = {acc[1] / safe, acc[2] / safe, acc[3] / safe};
-    const int up[6][2] = {{0, 0}, {0, 1}, {0, 2}, {1, 1}, {1, 2}, {2, 2}};
-    const float eye6[6] = {1.f, 0.f, 0.f, 1.f, 0.f, 1.f};
-    float* out = cor + (size_t)p * K + i;
-    const size_t leaf = (size_t)P * K;
-    for (int a = 0; a < 3; ++a) out[a * leaf] = out_alive ? om[a * K + i] + dm[a] : 0.f;
-    for (int c = 0; c < 6; ++c) {
-      const float spread = acc[4 + c] / safe - dm[up[c][0]] * dm[up[c][1]];
-      out[(3 + c) * leaf] = out_alive ? acc[10 + c] / safe + spread : eye6[c];
-    }
-    out[9 * leaf] = out_alive ? logf(safe) : DEAD;
-  }
-  probe(clk, 9);
-}
-
-
-// ---- the live design: shapes whose block layout exceeds a block's shared memory ----
-//
-// K0 = 500-1000 (the command line's MaxQuantity 600, the grids' 500) holds
-// a few dozen live components a particle. The block layout above sizes
-// every table for K0, so it stops fitting past K0 = 426 at M = 48 (540 at
-// M = 24), and loops over dead slots everywhere. Here a block first lists its live input components
-// (logw > ALIVE_THRESHOLD) in component order and runs every phase over
-// the N = L + M local components (L live, then the M birth candidates) and
-// the O = min(K, survivors) output slots, never over K0: dead slots give
-// nothing to the births' density (masked there), their misses and pairs sit
-// at DEAD under any tau, and a list in component order keeps the misses'
-// order and the pairs' (weight desc, index asc) order, so the result is the
-// block design's up to the order of two reductions (the density and the
-// pair weight sum, split otherwise across lanes). pred's map part is the
-// input copied as it stands; cor's tail takes the plain version's fill.
-//
-// Tables are placed per block: each goes to a shared arena of LIVE_ARENA
-// words while it fits (stage A grows up from the arena's start: z, the
-// predicted mixture, the EKF channels, the pair table; the output slots
-// grow down from its end; the merge tables reuse stage A's room), else to
-// the block's slot of a per-particle device-memory workspace sized for
-// N = K0 + M and O = K0 (LiveWs). So every (K0, M) launches, with shared
-// memory that does not grow with K0: three blocks an SM (72 KB each, at
-// most 80 registers a thread). The cut's bisection counts only the entries
-// above lo (the rest never count for a threshold >= lo), compacted into one
-// list whose head sits in registers. Bound on the H100: bytes (pred's copy
-// of the map and cor's fill), ~4.4 us at the command line's shape; in
-// practice the slowest block's chain of phases, one wave of blocks at
-// P = 200 (chip_smoke.py's phase split).
+// ---- the kernel ----------------------------------------------------------------------
 
 constexpr int LIVE_CUT_REGS = 8;    // entries above lo a thread keeps in registers
 constexpr int LIVE_ARENA = 15872;   // words of the shared arena
@@ -1424,29 +838,16 @@ fused_stage_kernel_live(const float* __restrict__ prm_g, const float* __restrict
   probe(clk, 9);
 }
 
-bool block_fits(int K0, int M) {
-  return Layout(K0, M).total * sizeof(float) <= (size_t)232448;
-}
-
 template <class Mdl>
 int launch(const float* prm, const float* pose, const float* maps, const float* z,
            const int* zmask, int zmask_stride, float* pred, float* cor, float* work, int P,
            int K0, int M, int gate_top, int merge_rounds, const ModelParams& mp, long long* clk,
            cudaStream_t stream) {
-  static std::atomic<size_t> smem_block[kMaxDevices], smem_live[kMaxDevices];  // per instantiation
-  if (block_fits(K0, M)) {
-    const size_t smem = Layout(K0, M).total * sizeof(float);
-    auto kernel = fused_stage_kernel<Mdl>;
-    cudaError_t err = allow_smem((const void*)kernel, smem_block, smem);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<P, THREADS, smem, stream>>>(prm, pose, maps, z, zmask, zmask_stride, pred, cor, P, K0,
-                                         M, gate_top, merge_rounds, mp, clk);
-    return (int)cudaGetLastError();
-  }
+  static std::atomic<size_t> smem_done[kMaxDevices];  // per instantiation
   if (work == nullptr) return (int)cudaErrorInvalidValue;
   const size_t smem = live_smem_bytes();
   auto kernel = fused_stage_kernel_live<Mdl>;
-  cudaError_t err = allow_smem((const void*)kernel, smem_live, smem);
+  cudaError_t err = allow_smem((const void*)kernel, smem_done, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<P, THREADS, smem, stream>>>(prm, pose, maps, z, zmask, zmask_stride, pred, cor, work, P,
                                        K0, M, gate_top, merge_rounds, mp, clk);
@@ -1455,25 +856,18 @@ int launch(const float* prm, const float* pose, const float* maps, const float* 
 
 }  // namespace
 
-// Shared memory one block asks for at this shape: the block layout where it
-// fits, else the live design's fixed 72 KB.
-extern "C" size_t fused_stage_smem_bytes(int K0, int M) {
-  return block_fits(K0, M) ? Layout(K0, M).total * sizeof(float) : live_smem_bytes();
-}
+// Shared memory one block asks for: a fixed 72 KB at every shape.
+extern "C" size_t fused_stage_smem_bytes(int, int) { return live_smem_bytes(); }
 
-// f32 words of one particle's workspace: 0 for the block design, else the
-// live design's slots (LiveWs).
-extern "C" size_t fused_stage_workspace_floats(int K0, int M) {
-  return block_fits(K0, M) ? 0 : LiveWs(K0, M).total;
-}
+// f32 words of one particle's workspace (LiveWs).
+extern "C" size_t fused_stage_workspace_floats(int K0, int M) { return LiveWs(K0, M).total; }
 
 // meas_dim 3 = PRM3D, 2 = Linear2D, 1 = Linear1D. prm [16 + D + D*D]; pose
 // [P, S]; maps [10, P, K0]; z [M, D] f32; zmask int32, [M] shared by every
 // particle (zmask_stride 0) or [P, M] one row per particle (zmask_stride M); pred [10, P, K0+M]
 // and cor [10, P, K0] f32 out; work: [P, fused_stage_workspace_floats] f32
-// scratch where the live design runs (null for the block design); m0..m7
-// the model's parameters (ModelParams); clk [P, NPHASE+1] int64 phase
-// clocks, or null (the main path).
+// scratch; m0..m7 the model's parameters (ModelParams); clk [P, NPHASE+1]
+// int64 phase clocks, or null (the main path).
 extern "C" int fused_stage_launch(int meas_dim, const float* prm, const float* pose,
                                   const float* maps, const float* z, const int* zmask,
                                   int zmask_stride, float* pred, float* cor, float* work, int P,

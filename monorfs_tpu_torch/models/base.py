@@ -8,7 +8,7 @@ accessors close over it, and return the model's own functions for every
 other model, which ignores the map."""
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -54,6 +54,9 @@ class Model:
     # depth-occlusion models take the live depth map [H, W] as a trailing
     # argument of visible / fuzzy_visible / fuzzy_visible_soa
     uses_depth: bool = False
+    # (params) -> the 8 floats csrc/model_policy.cuh's ModelParams holds for
+    # the family's instantiation; None for a model no hand-written kernel takes
+    kernel_params: Optional[Callable] = None
 
     def with_params(self, params):
         return dataclasses.replace(self, params=params)

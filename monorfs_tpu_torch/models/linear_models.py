@@ -26,6 +26,11 @@ class Params:
         return Params(float(vals[0]))
 
 
+def kernel_params(p: Params):
+    """The range as csrc/model_policy.cuh's Linear reads it (the rest unused)."""
+    return (p.range,) + (0.0,) * 7
+
+
 def _pose_ops(dim):
     return PoseOps(
         state_dim=dim,
@@ -125,6 +130,7 @@ def _make(dim, name):
         jac_landmark_soa=jac_landmark_soa,
         to_map_soa=to_map_soa,
         fuzzy_visible_soa=fuzzy_visible_soa,
+        kernel_params=kernel_params,
     )
 
 

@@ -240,6 +240,13 @@ POSE_OPS = PoseOps(
     add_odometry_jacobian=pose3d.add_odometry_jacobian,
 )
 
+def kernel_params(p: Params):
+    """The camera as csrc/model_policy.cuh's Prm3d reads it: focal, focal
+    squared, the film's left, right, top and bottom edges, the range."""
+    return (p.focal, p.focal * p.focal, p.film_left, p.film_right, p.film_top, p.film_bottom,
+            p.range_min, p.range_max)
+
+
 MODEL = Model(
     name="PRM3D",
     pose=POSE_OPS,
@@ -258,4 +265,5 @@ MODEL = Model(
     jac_landmark_soa=jac_landmark_soa,
     to_map_soa=to_map_soa,
     fuzzy_visible_soa=fuzzy_visible_soa,
+    kernel_params=kernel_params,
 )

@@ -8,7 +8,7 @@ They give the same opt_delta, word_k and bit_k bit for bit; base, the sum of
 the valid MAP rows' log miss, differs only in the order of that sum
 (csrc/assoc_options.cu's note). The Kinect model's depth-occlusion
 visibility reads the live depth image, which no other model does: it takes
-the plain version (pick), as it takes the XLA-semantics correct stage."""
+the plain version (phd.route), as it takes the XLA-semantics correct stage."""
 
 import ctypes
 import functools
@@ -17,7 +17,7 @@ import torch
 
 from .. import _build
 from ..gm import smallmat
-from . import association, fused_kernel
+from . import association
 
 # csrc/assoc_options.cu's constants of the launch shape
 _THREADS = 256
@@ -117,21 +117,10 @@ def _launcher():
     )
 
 
-def pick(model, dtype, kernels=None):
-    """The association options of a step of this model and dtype, as
-    mixture_kernel.pick chooses: kernels=None takes the kernel's wrapper for
-    float32 and a model without depth occlusion, the plain version
-    otherwise; False the plain version; True the wrapper (float64 or a depth
-    model raises)."""
-    takes = dtype == torch.float32 and not model.uses_depth
-    if kernels and not takes:
-        raise ValueError(f"the association kernel is float32 only and takes no depth-occlusion model, "
-                         f"not {dtype} with the {model.name} model")
-    return assoc_options if (takes if kernels is None else kernels) else assoc_options_plain
-
-
 def _check(model, cfg, pose, jmeans, jvalid, z, z_mask):
     """Raise on what the kernel does not take; returns (M, C)."""
+    if model.kernel_params is None:
+        raise ValueError(f"the association kernel takes no {model.name} model")
     p, e = jvalid.shape
     d, s = model.meas_dim, model.pose.state_dim
     dev = jvalid.device
@@ -183,7 +172,7 @@ def assoc_options(model, cfg, params, pose, jmeans, jvalid, z, z_mask, packed=No
         err = _launcher()(
             d, prm.data_ptr(), pose.data_ptr(), *[x.data_ptr() for x in jmeans], *jmeans[0].stride(),
             jvalid.data_ptr(), z.data_ptr(), z_mask.data_ptr(), z.shape[0], p, e, m, c,
-            *fused_kernel.model_params(model), base.data_ptr(), od.data_ptr(), wk.data_ptr(), bk.data_ptr(),
+            *model.kernel_params(model.params), base.data_ptr(), od.data_ptr(), wk.data_ptr(), bk.data_ptr(),
             stream,
         )
     _build.check(err, "assoc_options_launch")

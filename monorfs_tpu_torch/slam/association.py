@@ -223,11 +223,10 @@ def quasi_set_log_likelihood(model, meas_cov, pd, log_clutter, pose, map_means, 
     S_i = J_i P_i J_i^T + R, and a two-sided gate (0 <= d^2 < 144) keeps an
     indefinite S from scoring astronomically high.
 
-    beam: the beam scan to use. None takes beam_kernel.beam_scan_batch for
-    a float32 call that needs no gradient (one launch for every row; the
-    plain version for CPU tensors; beam_kernel.pick) and the plain beam
-    otherwise; gradients and Hessians always go through the plain beam
-    under torch.autograd."""
+    beam: the beam scan of a call that needs no gradient (phd.route's
+    `beam`: the kernel's wrapper for float32, one launch for every row);
+    None takes the plain beam. Gradients and Hessians always go through the
+    plain beam under torch.autograd."""
     lead = [pose.shape[:-1], map_means.shape[:-2], map_mask.shape[:-1], z.shape[:-2],
             z_mask.shape[:-1]] + ([lm_cov.shape[:-3]] if lm_cov is not None else [])
     batch = torch.broadcast_shapes(*lead)
@@ -251,11 +250,6 @@ def quasi_set_log_likelihood(model, meas_cov, pd, log_clutter, pose, map_means, 
         ll = likelihood_matrix(mu, log_pd, logmult, r_inv, z, 12.0)
     ll = torch.where(z_mask[:, None, :], ll, torch.full_like(ll, NEG))
     base, od, wk, bk, n_words = prepare_options(ll, log_miss, log_clutter, map_mask, z_mask)
-    if beam is None:
-        if torch.is_grad_enabled() and pose.requires_grad:
-            beam = beam_scan
-        else:
-            from .beam_kernel import pick
-
-            beam = pick(od.dtype)
+    if beam is None or (torch.is_grad_enabled() and pose.requires_grad):
+        beam = beam_scan
     return logsumexp_scores(beam(base, od, wk, bk, beam_width, n_words)).reshape(batch)

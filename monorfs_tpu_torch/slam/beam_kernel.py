@@ -65,15 +65,6 @@ def takes(m, c, beam_width, n_words):
     return layout_bytes(m, c, beam_width, n_words) > 0
 
 
-def pick(dtype, kernels=None):
-    """The beam scan of a step or likelihood of this dtype: kernels=None
-    takes the kernel's wrapper for float32 and the plain scan otherwise,
-    True the wrapper, False the plain scan. The wrapper launches the kernel
-    for CUDA tensors, raising on a shape no design takes (takes), and runs
-    the plain scan for CPU tensors."""
-    return beam_scan_batch if (dtype == torch.float32 if kernels is None else kernels) else beam_scan_plain
-
-
 @functools.cache
 def smem_bytes(m, c, beam_width, n_words):
     """Shared memory one block of the kernel asks for at this shape; 0 when

@@ -20,16 +20,13 @@ follow the kernel semantics of fused_pallas.py:21-41, not the XLA path's:
 
 The kernel and the plain version take the three model families (PRM3D,
 Linear2D, Linear1D: measurement dimension D = 3, 2, 1; pose width 7, 2, 1)
-and every (K0, M). The kernel has two designs, picked by the shape alone:
-the block design where its whole layout fits a block's shared memory
-(K0 = 128: the bench, the smoother, the scaling runs), else the live design
-(K0 = 500-1000: the command line, the grids), which runs each phase over a
-particle's live components and the birth candidates only and keeps a table
-in a per-particle device-memory workspace (allocated once per shape and
-device, sized by the built library's fused_stage_workspace_floats) where it
-does not fit its shared arena. `design`, `layout_bytes` and
-`workspace_floats` are Python copies of the C decision and sizes, for the
-CPU tests; chip_smoke.py holds them against the C functions."""
+and every (K0, M). The kernel runs each phase over a particle's live
+components and the birth candidates only, and keeps a table in a
+per-particle device-memory workspace (allocated once per shape and device,
+sized by the built library's fused_stage_workspace_floats) where it does
+not fit its shared arena. `layout_bytes` and `workspace_floats` are Python
+copies of the C sizes, for the CPU tests; chip_smoke.py holds them against
+the C functions."""
 
 import ctypes
 import functools
@@ -41,10 +38,9 @@ from ..gm import smallmat
 from ..gm.mixture import ALIVE_THRESHOLD, DEAD, SGM, topk_stable
 
 BISECT = 30
-PHASES = ("births", "predicted write", "EKF", "pairs", "cut", "compaction",
-          "merge relation", "leader rounds", "pooling and write")
-# the live design's clock: its first pass copies pred's map part
-LIVE_PHASES = ("map copy, live list and births", "predicted births write") + PHASES[2:]
+# the phase clock's names; the first pass copies pred's map part
+PHASES = ("map copy, live list and births", "predicted births write", "EKF", "pairs", "cut",
+          "compaction", "merge relation", "leader rounds", "pooling and write")
 _PAIRS = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
 
 
@@ -246,13 +242,6 @@ def fused_stage_plain(model, cfg, params, pose, maps: SGM, z, z_mask):
 
 # ---- CUDA kernel wrapper -----------------------------------------------------
 
-def supported(model, dtype):
-    """Whether the fused stage can run this configuration (the port's copy
-    of monorfs_tpu.slam.fused_pallas.supported): float32 and a model without
-    depth occlusion, so the Kinect model takes the XLA-semantics stage."""
-    return not model.uses_depth and dtype == torch.float32 and model.meas_dim in (1, 2, 3)
-
-
 def pack_params(model, params):
     """PHDParams -> flat [16 + D + D*D] f32 (layout read by
     csrc/fused_stage.cu): 7 scalars, ramp [D], meas_cov [D, D], birth_cov."""
@@ -265,54 +254,23 @@ def pack_params(model, params):
     return torch.cat([x.reshape(-1).to(torch.float32) for x in parts])
 
 
-def model_params(model):
-    """The model's own parameters as the 8 floats the kernel takes by value."""
-    mp = model.params
-    if model.name == "PRM3D":
-        return (mp.focal, mp.focal * mp.focal, mp.film_left, mp.film_right,
-                mp.film_top, mp.film_bottom, mp.range_min, mp.range_max)
-    if model.name in ("Linear2D", "Linear1D"):
-        return (mp.range,) + (0.0,) * 7
-    raise NotImplementedError(f"the fused kernel has no instantiation for {model.name}")
-
-
-# csrc/fused_stage.cu's sizes: the block layout (Layout), the live design's
-# shared memory (LIVE_FIXED + LIVE_ARENA words) and workspace (LiveWs)
-_LIVE_SMEM_WORDS = 32 + 64 + 2 * 128 * 8 + 15872
-
-
-def _block_words(k0, m):
-    kp, nwk = k0 + m, (k0 + 31) // 32
-    return 32 + 40 * kp + 9 * m + m * kp + 23 * k0 + k0 * nwk + nwk + 64
-
-
-def design(k0, m):
-    """"block" where the block layout fits one block's shared memory, else
-    "live" (csrc/fused_stage.cu, block_fits)."""
-    return "block" if 4 * _block_words(k0, m) <= _build.SMEM_LIMIT else "live"
+# csrc/fused_stage.cu's sizes: shared memory (LIVE_FIXED + LIVE_ARENA words)
+_SMEM_WORDS = 32 + 64 + 2 * 128 * 8 + 15872
 
 
 def layout_bytes(k0, m):
-    """Shared memory one block asks for at this shape (the Python copy of
-    fused_stage_smem_bytes)."""
-    return 4 * (_block_words(k0, m) if design(k0, m) == "block" else _LIVE_SMEM_WORDS)
+    """Shared memory one block asks for, the same at every shape (the Python
+    copy of fused_stage_smem_bytes)."""
+    return 4 * _SMEM_WORDS
 
 
 def workspace_floats(k0, m):
-    """f32 words of one particle's device-memory workspace: 0 for the block
-    design, else a slot for each of the live design's tables at its largest
-    (N = K0 + M local components and the cut's list of their entries, K0
-    output slots; the Python copy of
+    """f32 words of one particle's device-memory workspace: a slot for each
+    of the kernel's tables at its largest (N = K0 + M local components and
+    the cut's list of their entries, K0 output slots; the Python copy of
     fused_stage_workspace_floats)."""
-    if design(k0, m) == "block":
-        return 0
     kpm, nwk = k0 + m, (k0 + 31) // 32
     return 9 * m + (41 + 2 * m) * kpm + 22 * k0 + k0 * nwk + nwk
-
-
-def phases(k0, m):
-    """The phase clock's names at this shape."""
-    return PHASES if design(k0, m) == "block" else LIVE_PHASES
 
 
 @functools.cache
@@ -331,11 +289,10 @@ def workspace_floats_built(k0, m):
 
 @functools.cache
 def _workspace(p, k0, m, device):
-    """The live design's workspace [P, fused_stage_workspace_floats] f32 of
-    a shape, allocated once per device (None for the block design, which
-    takes none); launches on one stream run in order, so they share it."""
-    n = workspace_floats_built(k0, m)
-    return torch.empty((p, n), dtype=torch.float32, device=device) if n > 0 else None
+    """The workspace [P, fused_stage_workspace_floats] f32 of a shape,
+    allocated once per device; launches on one stream run in order, so they
+    share it."""
+    return torch.empty((p, workspace_floats_built(k0, m)), dtype=torch.float32, device=device)
 
 
 @functools.cache
@@ -352,8 +309,8 @@ def fused_stage(model, cfg, params, pose, maps: SGM, z, z_mask, packed=None, pha
     z_mask: [M], or [P, M] with one measurement mask per particle (block p
     reads row p; the smoother's leave-block-out passes). packed: pack_params(model, params) on the device, when the caller keeps
     it across calls. phase_clock: an int64 [P, len(PHASES) + 1] CUDA tensor
-    that receives each block's clock64() at entry and after each phase of
-    phases(K0, M) (a measurement; it adds a barrier per phase). Returns (predicted
+    that receives each block's clock64() at entry and after each phase (a
+    measurement; it adds a barrier per phase). Returns (predicted
     SGM [P, K0+M], corrected SGM [P, K0]). On CUDA tensors the kernel is
     launched or an error is raised; the plain version runs for CPU tensors
     only."""
@@ -361,7 +318,9 @@ def fused_stage(model, cfg, params, pose, maps: SGM, z, z_mask, packed=None, pha
         return fused_stage_plain(model, cfg, params, pose, maps, z, z_mask)
     if pose.device.type != "cuda":
         raise ValueError(f"unsupported device {pose.device}")
-    mvals = model_params(model)
+    if model.kernel_params is None:
+        raise ValueError(f"the fused kernel takes no {model.name} model")
+    mvals = model.kernel_params(model.params)
     d, s = model.meas_dim, model.pose.state_dim
     p = pose.shape[0]
     k0 = maps.capacity
@@ -379,8 +338,7 @@ def fused_stage(model, cfg, params, pose, maps: SGM, z, z_mask, packed=None, pha
             )
     if cfg.gate_top < 1 or cfg.merge_rounds < 0:
         raise ValueError("gate_top must be positive and merge_rounds non-negative")
-    ws = _workspace(p, k0, m, dev)
-    work = 0 if ws is None else ws.data_ptr()
+    work = _workspace(p, k0, m, dev).data_ptr()
     clk = 0
     if phase_clock is not None:
         shape = (p, len(PHASES) + 1)

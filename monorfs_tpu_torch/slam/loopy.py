@@ -21,8 +21,8 @@ Python loops over the nodes that never read a device value on the host.
 
 Gradients come from torch.autograd through the plain association beam
 (association.quasi_set_log_likelihood); the Hessian is O rows of double
-backward. Value-only likelihoods take the beam kernel for float32 (see
-LoopyConfig.kernels)."""
+backward. Value-only likelihoods take the beam that phd.route gives for
+LoopyConfig.kernels (the kernel for float32)."""
 
 import dataclasses
 import math
@@ -64,11 +64,10 @@ class LoopyConfig:
     jmap_cap: int = 32
     beam_width: int = 32
     inner: phd.PHDConfig = None  # inner mapping filter sizes
-    # the inner filter's fused stage and the value-only beams, as
-    # phd.make_slam_step's `kernels`: None -> the kernels for float32 (their
-    # plain versions on CPU tensors), the XLA-semantics functions and the
-    # plain beam for float64; False -> the latter for any dtype (the tests'
-    # oracle)
+    # the inner filter's stages and the value-only beams: phd.route's
+    # `kernels` (None -> the kernels for float32, their plain versions on
+    # CPU tensors; False -> the XLA-semantics stage and the plain versions
+    # for any dtype, the tests' oracle)
     kernels: Optional[bool] = None
 
     def __post_init__(self):
@@ -442,12 +441,6 @@ def final_map(model, cfg: LoopyConfig, params, state: LoopyState, z, z_mask, his
 # likelihood, gradient ascent, Hessian
 
 
-def _beam(cfg: LoopyConfig):
-    """The value-only beam: association's choice, or the plain beam for
-    kernels=False."""
-    return association.beam_scan if cfg.kernels is False else None
-
-
 def quasi_ll(model, meas_cov, pd, log_clutter, lp, tangent, jmap, jvalid, z, z_mask, beam_width,
              jcov=None, beam=None):
     """Quasi set log-likelihood at pose lp (+) tangent, batched over the
@@ -534,10 +527,10 @@ def make_sequential_refit(model, cfg: LoopyConfig):
     GuidedFitMixture's guesses :777-793), then feed the corrected pose to
     the mapping filter. A loop over the nodes; no value goes to the host."""
     o = model.pose.odo_dim
-    beam = _beam(cfg)
 
     def fit_pose(params, minfo, pred, lp_t, jmap, jcov, jvalid, z_t, zm_t, grad_clip, grad_rate):
         log_clutter = torch.log(params.clutter_density)
+        beam = phd.route(model, pred.dtype, cfg.kernels).beam
 
         def obj(tg):
             ll = quasi_ll(model, params.meas_cov, params.pd, log_clutter, pred, tg, jmap, jvalid,
@@ -611,7 +604,7 @@ def fit_map_message(model, cfg: LoopyConfig, params, lp, pose0, pf_cov, jmap, jc
     dtype, dev = pose0.dtype, pose0.device
     mc = params.meas_cov
     log_clutter = torch.log(params.clutter_density)
-    beam = _beam(cfg)
+    beam = phd.route(model, dtype, cfg.kernels).beam
     eye = torch.eye(o, dtype=dtype, device=dev)
 
     def ll(tangent):  # tangent [N, ..., O] -> [N, ...]
@@ -851,7 +844,7 @@ def trajectory_objective(model, cfg: LoopyConfig, params, state: LoopyState, odo
         map_term = association.quasi_set_log_likelihood(
             model, params.meas_cov, params.pd, torch.log(params.clutter_density), poses,
             jmaps[block_ids], jvalids[block_ids], z, z_mask, cfg.beam_width,
-            lm_cov=jcovs[block_ids], beam=_beam(cfg),
+            lm_cov=jcovs[block_ids], beam=phd.route(model, poses.dtype, cfg.kernels).beam,
         )
         map_term = torch.where(state.node_mask, map_term, torch.zeros_like(map_term))
         return torch.sum(chain), torch.sum(map_term)

@@ -73,16 +73,6 @@ def _launcher():
     )
 
 
-def pick(dtype, kernels=None):
-    """The mixture likelihoods of a step of this dtype, as beam_kernel.pick
-    chooses: kernels=None takes the kernel's wrapper for float32 and the
-    plain version otherwise, False the plain version, True the wrapper (a
-    dtype other than float32 raises)."""
-    if kernels and dtype != torch.float32:
-        raise ValueError(f"the mixture likelihood kernel is float32 only, not {dtype}")
-    return mixture_rest if (dtype == torch.float32 if kernels is None else kernels) else mixture_rest_plain
-
-
 def mixture_rest(predicted: SGM, corrected: SGM, jmeans, jvalid):
     """mixture_rest_plain for CPU tensors; for CUDA tensors one launch of
     the kernel, raising on what it does not take. predicted leaves [P, KP],

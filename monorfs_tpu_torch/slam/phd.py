@@ -11,11 +11,10 @@ make_slam_step wires it in the JAX package (phd.py:574-635):
   compact   measurements are gathered live-first (stable) into meas_compact
             slots, shared by all particles;
   correct   births + EKF correct + prune/merge: the fused stage with the
-            kernel's semantics (slam/fused_kernel.py) where
-            fused_kernel.supported holds (float32, no depth occlusion), or
-            the XLA path's semantics (_births_soa + _correct_prune_soa: one
-            global top-K cut, no gate_top cap, survivors in weight order)
-            for float64 and the Kinect model;
+            kernel's semantics (slam/fused_kernel.py) for float32 and a
+            model the kernels take, or the XLA path's semantics
+            (xla_stage: one global top-K cut, no gate_top cap, survivors in
+            weight order) for float64 and the Kinect model (route);
   weight    the MAP-estimate weight inputs per particle (the two mixture
             likelihoods: slam/mixture_kernel.py; the association options:
             slam/assoc_kernel.py), then the association beam over all
@@ -300,17 +299,68 @@ def _correct_prune_soa(model, cfg, params, pose, pred: SGM, zl, z_mask):
     )
 
 
-def weight_inputs(model, cfg, params, pose, predicted: SGM, corrected: SGM, z, z_mask, kernels=None,
+def xla_stage(model, cfg, params, pose, maps: SGM, z, z_mask, packed=None):
+    """Births + correct + prune with the XLA path's semantics
+    (_births_soa, then _correct_prune_soa over the maps and the births),
+    with fused_kernel.fused_stage's signature; packed is not read. Returns
+    (predicted SGM [P, K0+M], corrected SGM [P, max_components])."""
+    zl = [z[:, i] for i in range(model.meas_dim)]
+    predicted = mixture.concat_soa(maps, _births_soa(model, params, pose, maps, zl, z_mask))
+    return predicted, _correct_prune_soa(model, cfg, params, pose, predicted, zl, z_mask)
+
+
+class Route(NamedTuple):
+    """The functions a step of one model and dtype runs for its stages."""
+
+    correct: Callable  # fused_kernel.fused_stage or xla_stage
+    mixture: Callable  # (predicted, corrected, jmeans, jvalid) -> rest [P]
+    assoc: Callable  # (model, cfg, params, pose, jmeans, jvalid, z, z_mask, packed) -> options
+    beam: Callable  # (base, opt_delta, word_k, bit_k, beam_width, n_words) -> scores [P, B]
+    packed: bool  # correct and assoc read the packed parameter vectors
+
+
+def route(model, dtype, kernels=None):
+    """The stage functions of a step of this model and dtype: the only code
+    that knows which model and dtype each hand-written kernel takes, as the
+    JAX step's pallas_correct / pallas_beam defaults choose (phd.py:521-534).
+
+      None   float32 takes the mixture likelihood and beam kernels' wrappers,
+             and, for a model with a kernel instantiation
+             (model.kernel_params: PRM3D, Linear2D, Linear1D), the fused
+             stage's and the association kernel's; the rest take the
+             XLA-semantics stage and the plain versions (the Kinect model
+             in float32: the mixture and beam kernels only; float64: none);
+      False  the XLA-semantics stage and the plain versions for any dtype
+             and model (the tests' oracle);
+      True   the four kernels; float64 or a model without a kernel
+             instantiation raises.
+
+    A wrapper launches its CUDA kernel for CUDA tensors and runs its plain
+    version for CPU tensors. The module attributes are read at each call,
+    so a step built after a test replaces one runs the replacement."""
+    f32, takes = dtype == torch.float32, model.kernel_params is not None
+    if kernels and not (f32 and takes):
+        raise ValueError(f"the kernels are float32 only and take the models with a kernel instantiation, "
+                         f"not the depth-occlusion model: this step has {dtype} and the {model.name} model")
+    fast = f32 if kernels is None else bool(kernels)
+    return Route(
+        correct=fused_kernel.fused_stage if fast and takes else xla_stage,
+        mixture=mixture_kernel.mixture_rest if fast else mixture_kernel.mixture_rest_plain,
+        assoc=assoc_kernel.assoc_options if fast and takes else assoc_kernel.assoc_options_plain,
+        beam=beam_kernel.beam_scan_batch if fast else beam_kernel.beam_scan_plain,
+        packed=fast and takes,
+    )
+
+
+def weight_inputs(model, cfg, params, pose, predicted: SGM, corrected: SGM, z, z_mask, fns: Route,
                   packed=None):
     """Per-particle weight-stage inputs (WeightAlpha, PHDNavigator.cs:373-453):
     rest = (plog - n_pred) - (clog - n_corr) on the MAP estimate of the
-    corrected map, and the association beam's option tensors. kernels picks
-    the mixture likelihoods and the association options as make_slam_step's
-    switch does (mixture_kernel.pick, assoc_kernel.pick); packed is
-    assoc_kernel.pack_params(model, params) where the caller keeps it.
+    corrected map, and the association beam's option tensors, by the
+    route's mixture likelihoods and association options (`fns`); packed
+    is assoc_kernel.pack_params(model, params) where the caller keeps it.
 
     Returns (rest [P], base [P], opt_delta [P, M, C+1], word_k, bit_k)."""
-    dtype = corrected.logw.dtype
     with nested("phd.weight_inputs.map_estimate"):
         jidx, jvalid = mixture.best_map_indices(corrected.logw, cfg.estimate_cap)  # [P, E]
         mfeat = torch.stack(corrected.mean_list(), dim=-1)
@@ -319,12 +369,10 @@ def weight_inputs(model, cfg, params, pose, predicted: SGM, corrected: SGM, z, z
         jmeans = [jm[..., i] for i in range(3)]
 
     with nested("phd.weight_inputs.mixture_ll"):
-        rest = mixture_kernel.pick(dtype, kernels)(predicted, corrected, jmeans, jvalid)
+        rest = fns.mixture(predicted, corrected, jmeans, jvalid)
 
     with nested("phd.weight_inputs.assoc"):
-        base, od, wk, bk = assoc_kernel.pick(model, dtype, kernels)(
-            model, cfg, params, pose, jmeans, jvalid, z, z_mask, packed
-        )
+        base, od, wk, bk = fns.assoc(model, cfg, params, pose, jmeans, jvalid, z, z_mask, packed)
     return rest, base, od, wk, bk
 
 
@@ -426,24 +474,7 @@ def make_slam_step(model, cfg: PHDConfig, slam: bool = True, kernels=None, stage
 
     kernels chooses the births + correct + prune stage, the mixture
     likelihoods and the association options of the weight inputs and the
-    beam, as the JAX step's pallas_correct / pallas_beam defaults do
-    (phd.py:521-534):
-      None   the fused stage (fused_kernel.fused_stage) where
-             fused_kernel.supported(model, dtype) holds, else the
-             XLA-semantics functions above; the association kernel
-             (assoc_kernel.assoc_options) where the same holds, else its
-             plain version (assoc_kernel.pick); the mixture likelihood kernel
-             (mixture_kernel.mixture_rest) and the beam kernel
-             (beam_kernel.beam_scan_batch) for every float32 SLAM step,
-             else their plain versions (mixture_kernel.pick,
-             beam_kernel.pick). A wrapper launches its CUDA kernel for
-             CUDA tensors and runs its plain version for CPU tensors. So the
-             Kinect model in float32 takes the mixture and beam kernels and
-             neither the fused nor the association one;
-      False  the XLA-semantics functions and the plain versions for any
-             dtype and model (the tests' oracle);
-      True   the four kernels; a float64 state or a model the fused stage
-             does not support raises.
+    beam, as route(model, dtype, kernels) says, resolved once per dtype.
 
     stages replaces a stage with another function, as tools/ablate.py takes
     stages out (the JAX tool patches the module instead):
@@ -458,26 +489,22 @@ def make_slam_step(model, cfg: PHDConfig, slam: bool = True, kernels=None, stage
     stages = stages or {}
     normalise = stages.get("normalise", _normalise_resample)
     n_words = (cfg.estimate_cap + 31) // 32
+    routes = {}  # dtype -> its Route
     packed = [None, None, None]  # the params seen last, their fused and association vectors
 
-    def pack(params):
+    def pack(params, i):
         # kept while every field but the depth map is the same tensor: the
         # vectors hold no depth, and a params re-bound with a new depth map
         # only is not packed again
         last = packed[0]
         if last is None or any(x is not y for x, y in zip(params[:-1], last[:-1])):
             packed[:] = params, fused_kernel.pack_params(model, params), assoc_kernel.pack_params(model, params)
-        return packed
+        return packed[i]
 
     def step(params, state, odometry, z, z_mask, motion_normals, resample_u, true_pose=None):
-        f32 = state.pose.dtype == torch.float32
-        fused_ok = fused_kernel.supported(model, state.pose.dtype)
-        if kernels and not (f32 and fused_ok):
-            raise ValueError(
-                f"the kernels are float32 only and take no depth-occlusion model; this step has "
-                f"{state.pose.dtype} and the {model.name} model"
-            )
-        use_fused = fused_ok if kernels is None else bool(kernels)
+        fns = routes.get(state.pose.dtype)
+        if fns is None:
+            fns = routes[state.pose.dtype] = route(model, state.pose.dtype, kernels)
         with record_function("phd.predict"):
             state = predict_poses(model, params, state, odometry, motion_normals, slam, true_pose)
             if cfg.meas_compact and cfg.meas_compact < cfg.max_measurements:
@@ -488,15 +515,9 @@ def make_slam_step(model, cfg: PHDConfig, slam: bool = True, kernels=None, stage
         with record_function("phd.fused_stage"):
             if "correct" in stages:
                 predicted, corrected = stages["correct"](state.pose, state.maps, z, z_mask)
-            elif use_fused:
-                predicted, corrected = fused_kernel.fused_stage(
-                    model, cfg, params, state.pose, state.maps, z, z_mask, pack(params)[1]
-                )
             else:
-                zl = [z[:, i] for i in range(model.meas_dim)]
-                births = _births_soa(model, params, state.pose, state.maps, zl, z_mask)
-                predicted = mixture.concat_soa(state.maps, births)
-                corrected = _correct_prune_soa(model, cfg, params, state.pose, predicted, zl, z_mask)
+                predicted, corrected = fns.correct(model, cfg, params, state.pose, state.maps, z, z_mask,
+                                                   pack(params, 1) if fns.packed else None)
         if not slam:
             p = state.logweight.shape[0]
             return PHDState(
@@ -508,14 +529,12 @@ def make_slam_step(model, cfg: PHDConfig, slam: bool = True, kernels=None, stage
             increment = stages["weight"](state.pose, predicted, corrected, z, z_mask)
         else:
             with record_function("phd.weight_inputs"):
-                assoc = assoc_kernel.pick(model, state.pose.dtype, kernels) is assoc_kernel.assoc_options
                 rest, base, od, wk, bk = weight_inputs(
-                    model, cfg, params, state.pose, predicted, corrected, z, z_mask, kernels,
-                    pack(params)[2] if assoc else None,
+                    model, cfg, params, state.pose, predicted, corrected, z, z_mask, fns,
+                    pack(params, 2) if fns.packed else None,
                 )
             with record_function("phd.beam_scan"):
-                beam = beam_kernel.pick(od.dtype, kernels)
-                scores = beam(base, od, wk, bk, cfg.beam_width, n_words)
+                scores = fns.beam(base, od, wk, bk, cfg.beam_width, n_words)
             increment = association.logsumexp_scores(scores) + rest
         with record_function("phd.normalise_resample"):
             return normalise(params, state, corrected, increment, resample_u)

@@ -48,7 +48,7 @@ SHAPES = {
     "smoother2d-p1": ("Linear2D", 1, 128, 33, 27, 25, dict(max_measurements=33, gate_top=8), False),
     "smoother3d-p1": ("PRM3D", 1, 128, 48, 29, 40, dict(max_measurements=48, gate_top=8), False),
 }
-KERNEL = "fused_stage_kernel"  # substring of both designs' kernel names
+KERNEL = "fused_stage_kernel"  # substring of the kernel's name in every tree
 
 
 def pass_masks(z_mask, passes):
@@ -127,7 +127,7 @@ def main(argv=None):
         fargs = (models.get(mname), pcfg, params, pose, mixture.SGM(*[t(x) for x in leaves]), t(z), z_mask)
         runs.append((str(root), lambda fk=fk, fargs=fargs: fk.fused_stage(*fargs)))
         if args.phases:
-            names = fk.phases(k0, m) if hasattr(fk, "phases") else fk.PHASES
+            names = fk.PHASES
             clk = torch.zeros((p, len(names) + 1), dtype=torch.int64, device=dev)
             fk.fused_stage(*fargs, phase_clock=clk)
             d = torch.diff(clk, dim=1).cpu().numpy()

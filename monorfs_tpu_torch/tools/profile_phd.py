@@ -99,7 +99,8 @@ def stages(runner, carry, z, z_mask):
     n_words = (pcfg.estimate_cap + 31) // 32
 
     def weight():
-        rest, base, od, wk, bk = phd.weight_inputs(model, pcfg, params, pose, predicted, corrected, z, z_mask)
+        rest, base, od, wk, bk = phd.weight_inputs(model, pcfg, params, pose, predicted, corrected, z, z_mask,
+                                                   phd.route(model, z.dtype))
         scores = beam_kernel.beam_scan_batch(base, od, wk, bk, pcfg.beam_width, n_words)
         return association.logsumexp_scores(scores) + rest
 

@@ -79,7 +79,8 @@ def profile_count(p, reps, dev, flops, bytes_s, warm=100):
     pose, maps = state.pose, state.maps
     predicted = mixture.concat_soa(maps, phd._births_soa(model, params, pose, maps, zl, zc_mask))
     corrected = phd._correct_prune_soa(model, pcfg, params, pose, predicted, zl, zc_mask)
-    rest, base, od, wk, bk = phd.weight_inputs(model, pcfg, params, pose, predicted, corrected, zc, zc_mask)
+    fns = phd.route(model, torch.float32)
+    rest, base, od, wk, bk = phd.weight_inputs(model, pcfg, params, pose, predicted, corrected, zc, zc_mask, fns)
     n_words = (pcfg.estimate_cap + 31) // 32
     step = phd.make_slam_step(model, pcfg, slam=True)
     odo, normals, u = step_inputs(runner, torch.float32)
@@ -97,7 +98,7 @@ def profile_count(p, reps, dev, flops, bytes_s, warm=100):
         ("fused kernel", lambda: fused_kernel.fused_stage(model, pcfg, params, pose, maps, zc, zc_mask),
          fused_work),
         ("weight inputs",
-         lambda: phd.weight_inputs(model, pcfg, params, pose, predicted, corrected, zc, zc_mask), None),
+         lambda: phd.weight_inputs(model, pcfg, params, pose, predicted, corrected, zc, zc_mask, fns), None),
         ("beam kernel", lambda: beam_kernel.beam_scan_batch(base, od, wk, bk, pcfg.beam_width, n_words),
          beam_work),
         ("full step", lambda: step(params, state, odo, z, z_mask, normals, u), None),

@@ -4,8 +4,8 @@ for the three model families in float32 and float64 at the main path's
 shapes and on the edge cases the kernel is held to on the card
 (kernel_cases.ASSOC_CASES: ties, no gated pair, no valid MAP row, dead
 slots); the wrapper runs it for CPU tensors and raises on what the kernel
-does not take; `pick` and the step's `kernels` switch choose as
-mixture_kernel.pick does; the Python copy of the kernel's launch shape.
+does not take; the step's `kernels` switch (phd.route, tests/test_torch_route.py);
+the Python copy of the kernel's launch shape.
 
 The CUDA kernel itself runs only on the card: chip_smoke.py holds it to
 assoc_options_plain on the same cases."""
@@ -164,22 +164,6 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(change, match):
                     jvalid=torch.ones((pose.shape[0], e), dtype=torch.bool))
     with pytest.raises(ValueError, match=match):
         assoc_options(*args)
-
-
-@pytest.mark.parametrize("model_name,kernels,dtype,want", [
-    ("PRM3D", None, torch.float32, "kernel"), ("PRM3D", None, torch.float64, "plain"),
-    ("Linear2D", None, torch.float32, "kernel"), ("Linear1D", True, torch.float32, "kernel"),
-    ("PRM3D", False, torch.float32, "plain"), ("PRM3D", False, torch.float64, "plain"),
-    ("PRM3D", True, torch.float32, "kernel"), ("PRM3D", True, torch.float64, "raises"),
-    ("Kinect", None, torch.float32, "plain"), ("Kinect", False, torch.float32, "plain"),
-    ("Kinect", True, torch.float32, "raises")])
-def test_pick(model_name, kernels, dtype, want):
-    model = get_model(model_name)
-    if want == "raises":
-        with pytest.raises(ValueError, match="float32 only and takes no depth-occlusion model"):
-            assoc_kernel.pick(model, dtype, kernels)
-        return
-    assert assoc_kernel.pick(model, dtype, kernels) is (assoc_options if want == "kernel" else assoc_options_plain)
 
 
 @pytest.mark.parametrize("model_name", ["PRM3D", "Linear2D", "Linear1D"])

@@ -16,7 +16,8 @@ from monorfs_tpu.slam import association as jassoc
 from monorfs_tpu.slam import beam_pallas
 
 from monorfs_tpu_torch.kernel_cases import beam_ties
-from monorfs_tpu_torch.slam import association, beam_kernel
+from monorfs_tpu_torch.models import PRM3D
+from monorfs_tpu_torch.slam import association, beam_kernel, phd
 
 
 def _instances(seed, p, n, m):
@@ -186,16 +187,12 @@ def test_beam_takes_edges(m, c, b, n_words, bytes_):
 
 
 def test_beam_pick_and_wide_scan():
-    """beam_kernel.pick, a function of dtype alone: the kernel's wrapper for
-    float32 at the default 200 x 8 and at B=1000 C=8 alike (the block design
-    takes both), the plain scan for float64; kernels=True takes the wrapper,
-    kernels=False the plain scan. The wrapper at B=1000 (the plain version
-    on CPU tensors) equals the JAX scan bit for bit."""
-    assert beam_kernel.pick(torch.float32) is beam_kernel.beam_scan_batch
+    """The beam the route picks for a float32 step (phd.route; its table in
+    tests/test_torch_route.py) takes the default 200 x 8 and B=1000 C=8
+    alike (the block design takes both). The wrapper at B=1000 (the plain
+    version on CPU tensors) equals the JAX scan bit for bit."""
+    assert phd.route(PRM3D, torch.float32).beam is beam_kernel.beam_scan_batch
     assert beam_kernel.takes(48, 8, 200, 4) and beam_kernel.takes(24, 8, 1000, 4)
-    assert beam_kernel.pick(torch.float64) is beam_kernel.beam_scan_plain
-    assert beam_kernel.pick(torch.float32, kernels=False) is beam_kernel.beam_scan_plain
-    assert beam_kernel.pick(torch.float64, kernels=True) is beam_kernel.beam_scan_batch
 
     ll, log_miss, n_mask, m_mask, log_clutter = _instances(19, 2, 128, 24)
     jbase, jod, jwk, jbk, _ = _jax_prepare(ll, log_miss, n_mask, m_mask, log_clutter, 8)
@@ -217,8 +214,6 @@ def test_step_and_quasi_ll_wide_beams():
     import pathlib
 
     from monorfs_tpu_torch import bench_core
-    from monorfs_tpu_torch.slam import phd
-    from monorfs_tpu_torch.models import PRM3D
 
     assets = pathlib.Path(__file__).resolve().parent.parent / "assets"
     pcfg = phd.PHDConfig(num_particles=4, max_components=32, max_measurements=48, meas_compact=24,

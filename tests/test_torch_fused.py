@@ -265,31 +265,27 @@ def test_layout_sizes_finite(k0, m):
     """fused_kernel's Python copies of csrc/fused_stage.cu's sizes
     (chip_smoke.py holds them against fused_stage_smem_bytes and
     fused_stage_workspace_floats over a grid of shapes): every (K0, M)
-    launches, the block design where its layout fits a block, else the live
-    design, whose shared memory does not grow with K0 and whose workspace
-    holds every table at its largest."""
+    launches with 72,064 bytes of shared memory (three blocks an SM), which
+    does not grow with K0, and a workspace that holds each of LiveWs's
+    tables at its largest."""
     from monorfs_tpu_torch import _build
 
     smem, ws = fused_kernel.layout_bytes(k0, m), fused_kernel.workspace_floats(k0, m)
-    assert 0 < smem <= _build.SMEM_LIMIT
-    if fused_kernel.design(k0, m) == "block":
-        assert ws == 0
-    else:
-        assert smem == fused_kernel.layout_bytes(1000, 188) == 72064  # 3 blocks an SM
-        kp = k0 + m
-        # mixture, EKF, pair table, the cut's list, output and merge tables
-        assert ws >= 40 * kp + 2 * m * kp + 22 * k0
-    names = fused_kernel.phases(k0, m)
-    assert len(names) == len(fused_kernel.PHASES) and names[2:] == fused_kernel.PHASES[2:]
+    assert smem == 72064 and 3 * smem <= _build.SMEM_LIMIT
+    kp, nwk = k0 + m, (k0 + 31) // 32
+    # z and its rows 9 M; mixture 10, EKF 30, pair table M and the cut's list
+    # 1 + M a local component; output slots 10, sources, weights, ranks 3,
+    # rank-ordered means and metrics 9, leader bits and the relation a slot
+    assert ws == 9 * m + (10 + 30 + m + 1 + m) * kp + (10 + 1 + 2 + 9) * k0 + nwk + k0 * nwk
+    assert len(fused_kernel.PHASES) == 9
 
 
 def test_layout_designs():
-    """The bench shape keeps the block design and its 54,000 bytes
-    (chip_smoke.py prints them as smem_bytes); the command line's and the
-    grid's capacities take the live design."""
-    assert fused_kernel.design(128, 24) == "block" and fused_kernel.layout_bytes(128, 24) == 54000
-    assert fused_kernel.design(128, 48) == "block"  # bench_scaling's shape
-    assert fused_kernel.design(600, 48) == fused_kernel.design(500, 48) == "live"
+    """The bench, scaling and command-line shapes all ask the same 72,064
+    bytes (chip_smoke.py prints them as smem_bytes): one design for every
+    shape."""
+    shapes = [(128, 24), (128, 48), (600, 48), (500, 48)]  # bench, bench_scaling / flagship, CLI, grid
+    assert {fused_kernel.layout_bytes(k0, m) for k0, m in shapes} == {72064}
 
 
 def _insert_dead(leaves, slots, rng):

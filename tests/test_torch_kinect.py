@@ -238,9 +238,9 @@ def test_kernels_true_refuses_depth_model():
         phd.make_slam_step(tm, tcfg, kernels=True)(
             tp, state, torch.zeros(6), torch.tensor(np_(z), dtype=torch.float32), torch.tensor(np_(z_mask)),
             torch.zeros((4, 6)), torch.tensor(0.5))
-    assert not fused_kernel.supported(tm, torch.float32)
-    assert fused_kernel.supported(tget("PRM3D"), torch.float32)
-    assert not fused_kernel.supported(tget("PRM3D"), torch.float64)
+    assert phd.route(tm, torch.float32).correct is phd.xla_stage
+    assert phd.route(tget("PRM3D"), torch.float32).correct is fused_kernel.fused_stage
+    assert phd.route(tget("PRM3D"), torch.float64).correct is phd.xla_stage
 
 
 def test_depth_rebinding_does_not_repack(monkeypatch):

@@ -2,8 +2,8 @@
 version is the composition the weight inputs ran before the kernel, bit for
 bit in float32 and float64; it agrees with an independent float64 numpy
 evaluation on the edge cases the kernel is held to on the card
-(kernel_cases.MIXTURE_EDGES); the wrapper runs it for CPU tensors; `pick`
-and the step's `kernels` switch choose as beam_kernel.pick does.
+(kernel_cases.MIXTURE_EDGES); the wrapper runs it for CPU tensors; the
+weight inputs through the kernels' route give the plain route's outputs.
 
 The CUDA kernel itself runs only on the card: chip_smoke.py holds it to
 mixture_rest_plain on the same cases."""
@@ -129,19 +129,6 @@ def test_wrapper_raises_off_cpu_and_cuda():
         mixture_rest(SGM(*map(meta, pred)), SGM(*map(meta, cor)), list(map(meta, jm)), meta(jv))
 
 
-@pytest.mark.parametrize("kernels,dtype,want", [
-    (None, torch.float32, "kernel"), (None, torch.float64, "plain"),
-    (False, torch.float32, "plain"), (False, torch.float64, "plain"),
-    (True, torch.float32, "kernel"), (True, torch.float64, "raises")])
-def test_pick(kernels, dtype, want):
-    if want == "raises":
-        with pytest.raises(ValueError, match="float32 only"):
-            mixture_kernel.pick(dtype, kernels)
-        return
-    fn = mixture_kernel.pick(dtype, kernels)
-    assert fn is (mixture_rest if want == "kernel" else mixture_rest_plain)
-
-
 def test_layout():
     """The Python copies of the kernel's tile and shared-memory sizes (the
     card's chip_smoke.py holds them to the built library's): the grid's
@@ -156,8 +143,9 @@ def test_layout():
 
 @pytest.mark.parametrize("kernels", [None, True])
 def test_weight_inputs_kernel_switch_on_cpu(kernels):
-    """weight_inputs with kernels=None or True gives kernels=False's outputs
-    on CPU tensors (the wrapper's CPU route is the plain version)."""
+    """weight_inputs through the route of kernels=None or True gives the
+    outputs of kernels=False's on CPU tensors (the wrapper's CPU route is
+    the plain version)."""
     model = get_model("PRM3D")
     cfg = phd.PHDConfig(num_particles=5, max_components=48, max_measurements=12, estimate_cap=16,
                         beam_width=16, beam_candidates=6)
@@ -169,8 +157,10 @@ def test_weight_inputs_kernel_switch_on_cpu(kernels):
     pose, z, z_mask = torch.as_tensor(pose, dtype=torch.float32), torch.as_tensor(z, dtype=torch.float32), \
         torch.as_tensor(z_mask)
     predicted, corrected = fused_kernel.fused_stage_plain(model, cfg, params, pose, maps, z, z_mask)
-    want = phd.weight_inputs(model, cfg, params, pose, predicted, corrected, z, z_mask, kernels=False)
-    got = phd.weight_inputs(model, cfg, params, pose, predicted, corrected, z, z_mask, kernels=kernels)
+    want = phd.weight_inputs(model, cfg, params, pose, predicted, corrected, z, z_mask,
+                             phd.route(model, torch.float32, False))
+    got = phd.weight_inputs(model, cfg, params, pose, predicted, corrected, z, z_mask,
+                            phd.route(model, torch.float32, kernels))
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert torch.isfinite(got[0]).all()
