@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Smoke run of the PyTorch/CUDA port (monorfs_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--parent DIR] [--phases kernels,bench,sync,cli,graph,loopy,kinect,grid,parallel,view]
+    python3 chip_smoke.py [--parent DIR] [--phases kernels,bench,sync,vehicle,cli,graph,loopy,kinect,grid,parallel,view]
 
 Phases, one line each; any failure exits non-zero:
   1. device, `nvidia-smi` name and power limit, kernel build (nvcc, sm_90a);
@@ -162,6 +162,17 @@ Phases, one line each; any failure exits non-zero:
      ms per rendered frame (batched and alone), write_png ms, ms per decoded
      frame (host Huffman, device), PNG bytes; the phase's seconds beside
      VIEW_BUDGET_S. It runs inside the temporary directory after phase 10.
+ 13. `vehicle`: the simulated vehicle's frame as one CUDA graph
+     (sim/vehicle.py::FrameRunner), run after phase 5. For PRM3D, Linear2D
+     and Linear1D over VEHICLE_FRAMES frames of the asset world, eager
+     update + measure and the runner in turns: every output of every frame
+     bit-equal, each held to the end; host ms a frame and syncs a frame of
+     each. A Simulation without its history (a sleeping kernel a frame
+     keeps the device behind the host) moves the vehicle as one with it
+     (the pinned reading's guard); one capture and a replay a frame in
+     both; a replayed recording builds no graph; a runner captured under
+     torch.profiler gives the eager frame, and the kernel events a replayed
+     frame records. The phase's seconds beside VEHICLE_BUDGET_S.
 Cuts for the time limit: phase 6 runs the 180-landmark world over the first
 CLI180_FRAMES of mov3d.in's 300 frames; phase 7 repeats the 3D `-a isam2`
 command over its first REPEAT_FRAMES of 300 frames; phase 8 runs the port's own
@@ -1073,6 +1084,136 @@ def bench_phase(dev, kernels):
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["launches_by_path"] = {"bench": launches[k["name"]]}
+
+
+# ---- phase 13: the simulated vehicle as one CUDA graph ------------------------------
+
+VEHICLE_WORLDS = {"PRM3D": ("sim3d.world", "mov3d.in"), "Linear2D": ("linear2d.world", "mov2d.in"),
+                  "Linear1D": ("linear1d.world", "mov1d.in")}
+VEHICLE_FRAMES = 300  # each command file repeated to this many frames
+VEHICLE_LAG_CYCLES = 2_000_000  # ~1 ms of device clock a frame, so the host runs ahead
+VEHICLE_BUDGET_S = 30.0  # the phase's share of the script's time, printed beside its seconds
+
+
+def vehicle_sim(name, dev, frames=VEHICLE_FRAMES, **kw):
+    world_file, command_file = VEHICLE_WORLDS[name]
+    assets = pathlib.Path(__file__).resolve().parent / "assets"
+    commands = parse_commands((assets / command_file).read_text())
+    commands = (commands * (1 + frames // len(commands)))[:frames]
+    cfg = Config()
+    cfg.set_model_defaults(name)
+    return Simulation(cfg, World.from_file(assets / world_file), commands, algorithm="odometry",
+                      dtype=np.float32, seed=5, device=dev, **kw), commands
+
+
+def vehicle_turns(name, dev):
+    """Eager update + measure and a vehicle_mod.FrameRunner over the same
+    VEHICLE_FRAMES frames in turns (eager, graph, graph, eager): every output
+    of every frame bit-equal, each frame's outputs held to the end (so none
+    is a buffer a later replay rewrites); host ms a frame of each side (the
+    loop before its closing synchronise) and the syncs a frame."""
+    sim, commands = vehicle_sim(name, dev)
+    model, params, odo = sim.model, sim.vparams, sim.model.pose.odo_dim
+    draws = [sim.draws.frame(i) for i in range(len(commands))]
+
+    def eager():
+        state, out = sim.vstate, []
+        for cmd, d in zip(commands, draws):
+            state, noisy = vehicle_mod.update(model, params, state, sim._tensor(cmd[:odo]), d["odo_normals"])
+            out.append((state.pose, noisy) + vehicle_mod.measure(
+                model, params, state, d["detect_u"], d["meas_normals"], d["clutter_draw"], d["clutter_u"],
+                sim.max_clutter))
+        return out
+
+    runner = vehicle_mod.FrameRunner(model, params, sim.vstate, draws[0], sim.max_clutter)
+
+    def graph():
+        pose, out = sim.vstate.pose, []
+        for cmd, d in zip(commands, draws):
+            out.append(runner(pose, cmd[:odo], d))
+            pose = out[-1][0]
+        return out
+
+    outs, host_ms = {}, {"eager": [], "graph": []}
+    for side, fn in (("eager", eager), ("graph", graph), ("graph", graph), ("eager", eager)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[side] = fn()
+        host_ms[side].append((time.perf_counter() - t0) * 1e3 / len(commands))
+        torch.cuda.synchronize()
+    fields = ("pose", "noisy", "z", "mask", "labels", "visible", "detected")
+    for f, (a, b) in enumerate(zip(outs["eager"], outs["graph"], strict=True)):
+        for field, x, y in zip(fields, a, b, strict=True):
+            if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x, y):
+                raise AssertionError(f"vehicle {name} frame {f}: the graph's {field} differs from the eager one")
+    syncs = {side: count_syncs(fn, len(commands))[0] for side, fn in (("eager", eager), ("graph", graph))}
+    detected = sum(int(o[3].sum()) for o in outs["graph"])
+    say("vehicle", model=name, frames=len(commands), bit_equal=True, measurements=detected,
+        host_ms_per_frame_eager=host_ms["eager"], host_ms_per_frame_graph=host_ms["graph"],
+        syncs_per_frame_eager=syncs["eager"], syncs_per_frame_graph=syncs["graph"])
+
+
+def vehicle_phase(dev):
+    """Phase 13: the simulated vehicle's frame as one CUDA graph."""
+    t0 = time.perf_counter()
+    for name in VEHICLE_WORLDS:
+        vehicle_turns(name, dev)
+
+    # the pinned reading's guard: without the history nothing makes the host
+    # wait, and a sleeping kernel a frame keeps the device behind it
+    hist, commands = vehicle_sim("PRM3D", dev)
+    free, _ = vehicle_sim("PRM3D", dev, collect_history=False)
+    poses = []
+    for cmd in commands:
+        hist.step(cmd)
+        free.step(cmd)
+        torch.cuda._sleep(VEHICLE_LAG_CYCLES)
+        poses.append(free.vstate.pose)
+    got = torch.stack(poses).cpu().numpy()
+    want = np.stack([p for _, p in hist.waypoints])
+    if not np.array_equal(got, want):
+        raise AssertionError("the run without history moved the vehicle otherwise: the staged reading raced")
+    counts = [(s.vehicle_captures, s.vehicle_replays) for s in (hist, free)]
+    if counts != [(1, len(commands))] * 2:
+        raise AssertionError(f"captures and replays {counts} for {len(commands)} frames")
+
+    # a replay of that recording runs no vehicle, so no graph
+    with tempfile.TemporaryDirectory() as tmp:
+        hist.save(pathlib.Path(tmp) / "v.zip")
+        rec = Recording.load(pathlib.Path(tmp) / "v.zip")
+    replay = Simulation(hist.cfg, rec.world, [], algorithm="odometry", dtype=np.float32, device=dev,
+                        replay=rec).run()
+    if replay.vehicle_captures or replay.vehicle_replays or replay._vehicle_runner is not None:
+        raise AssertionError("a replayed run built the vehicle's graph")
+
+    # a runner built and replayed under the profiler, as a traced slice that
+    # starts a sequence would: the same outputs, and the kernels it records
+    sim, commands = vehicle_sim("PRM3D", dev, frames=10)
+    model, params, odo = sim.model, sim.vparams, sim.model.pose.odo_dim
+    draws = [sim.draws.frame(i) for i in range(len(commands))]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        runner = vehicle_mod.FrameRunner(model, params, sim.vstate, draws[0], sim.max_clutter)
+        first = runner(sim.vstate.pose, commands[0][:odo], draws[0])
+        torch.cuda.synchronize()
+    state, noisy = vehicle_mod.update(model, params, sim.vstate, sim._tensor(commands[0][:odo]),
+                                      draws[0]["odo_normals"])
+    want = (state.pose, noisy) + vehicle_mod.measure(
+        model, params, state, draws[0]["detect_u"], draws[0]["meas_normals"], draws[0]["clutter_draw"],
+        draws[0]["clutter_u"], sim.max_clutter)
+    if not all(torch.equal(a, b) for a, b in zip(first, want, strict=True)):
+        raise AssertionError("a graph captured under the profiler differs from the eager frame")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pose = first[0]
+        for cmd, d in zip(commands[1:], draws[1:]):
+            pose = runner(pose, cmd[:odo], d)[0]
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in device if not e.name.startswith(("Memcpy", "Memset"))]
+    seconds = time.perf_counter() - t0
+    say("vehicle-phase", history_free_equal=True, captures_replays=counts, replay_path_replays=0,
+        profiled_capture_equal=True, device_events_per_frame=len(device) / (len(commands) - 1),
+        kernel_events_per_frame=len(kernels) / (len(commands) - 1), phase_seconds=seconds,
+        budget_s=VEHICLE_BUDGET_S, within_budget=seconds <= VEHICLE_BUDGET_S)
 
 
 # ---- phase 6: the command-line path ----------------------------------------------
@@ -2249,8 +2390,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=pathlib.Path, default=None,
                     help="another checkout whose kernels are timed on the same inputs")
-    ap.add_argument("--phases", default="kernels,bench,sync,cli,graph,loopy,kinect,grid,parallel,view",
-                    help="comma-separated subset of kernels,bench,sync,cli,graph,loopy,kinect,grid,"
+    ap.add_argument("--phases", default="kernels,bench,sync,vehicle,cli,graph,loopy,kinect,grid,parallel,view",
+                    help="comma-separated subset of kernels,bench,sync,vehicle,cli,graph,loopy,kinect,grid,"
                          "parallel,view (default: all)")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -2297,6 +2438,8 @@ def main():
         if ours:
             raise AssertionError(f"the main path makes the host wait for the device: {ours}")
         say("sync-check", frames=10, syncs=syncs)
+    if "vehicle" in phases:
+        vehicle_phase(dev)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
         if "cli" in phases:

@@ -23,7 +23,9 @@ trace.
 200 x 8, or the capacity of a --config cfg file) twice, with and without the
 per-frame history (`_record`, which reads the best map and every pose to the
 host), and prints both objects, each with the peak device memory of its
-frames and its device-to-host reads a frame (Simulation.reads).
+frames, its device-to-host reads a frame (Simulation.reads) and the frames
+whose simulated vehicle ran as one CUDA-graph replay, a frame
+(`vehicle_replays_per_frame`, Simulation.vehicle_replays: 1.0 on a card).
 
 --graph profiles the graph backend on the 3D asset world: `nav` the
 host-interactive navigator through Simulation -a isam2 (float64), frames
@@ -203,7 +205,7 @@ def profile_cli(which, n, collect_history, device="cuda", particles=200, config=
     for cmd in commands[:CHUNK]:
         sim.step(cmd)
     torch.cuda.synchronize()
-    reads0 = sim.reads
+    reads0, replays0 = sim.reads, sim.vehicle_replays
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for cmd in commands[CHUNK:]:
@@ -213,6 +215,7 @@ def profile_cli(which, n, collect_history, device="cuda", particles=200, config=
     out = summarise(prof, wall, n)
     out.update(path="cli", world=world_file, collect_history=collect_history, config=config and str(config),
                reads_per_frame=(sim.reads - reads0) / n,
+               vehicle_replays_per_frame=(sim.vehicle_replays - replays0) / n,
                peak_memory_bytes=torch.cuda.max_memory_allocated(),
                shape=dict(P=particles, K0=sim.phd_cfg.max_components, M=sim.max_meas,
                           B=sim.phd_cfg.beam_width, C=sim.phd_cfg.beam_candidates))

@@ -195,6 +195,9 @@ class Simulation:
         self.time = 0.0
         self.frame_index = 0
         self.reads = 0  # device-to-host reads of the frame path (_host), each a wait for the device
+        self._vehicle_runner = None  # the simulated vehicle's FrameRunner, built on a CUDA device
+        self.vehicle_captures = 0  # CUDA graphs captured of the simulated vehicle's frame
+        self.vehicle_replays = 0  # frames whose simulated vehicle ran as one replay of that graph
 
     def _tensor(self, x):
         return torch.as_tensor(np.asarray(x, np.float64), dtype=self.dtype, device=self.device)
@@ -241,19 +244,34 @@ class Simulation:
         self.mode_mapping = self.onlymapping
 
     def _vehicle_frame(self, draws):
-        """Advance the vehicle and sample (or replay, or see) a measurement set."""
+        """Advance the vehicle and sample (or replay, or see) a measurement set.
+        On a CUDA device the simulated vehicle's frame is one replay of a CUDA
+        graph (vehicle.FrameRunner, captured at the first simulated frame); on
+        the CPU it runs eagerly."""
         if self.kinect is not None:
             return self._kinect_frame()
         if self.replay is not None:
             return self._replay_frame()
-        reading = self._tensor(self.current_command[: self.model.pose.odo_dim])
-        self.vstate, noisy = vehicle_mod.update(
-            self.model, self.vparams, self.vstate, reading, draws["odo_normals"]
-        )
-        z, mask, labels, visible, detected = vehicle_mod.measure(
-            self.model, self.vparams, self.vstate, draws["detect_u"], draws["meas_normals"],
-            draws["clutter_draw"], draws["clutter_u"], self.max_clutter,
-        )
+        reading = self.current_command[: self.model.pose.odo_dim]
+        if self._vehicle_runner is None and self.device.type == "cuda":
+            self._vehicle_runner = vehicle_mod.FrameRunner(
+                self.model, self.vparams, self.vstate, draws, self.max_clutter
+            )
+            self.vehicle_captures += 1
+        if self._vehicle_runner is not None:
+            pose, noisy, z, mask, labels, visible, detected = self._vehicle_runner(
+                self.vstate.pose, reading, draws
+            )
+            self.vstate = self.vstate._replace(pose=pose)
+            self.vehicle_replays += int(self._vehicle_runner.graph is not None)
+        else:
+            self.vstate, noisy = vehicle_mod.update(
+                self.model, self.vparams, self.vstate, self._tensor(reading), draws["odo_normals"]
+            )
+            z, mask, labels, visible, detected = vehicle_mod.measure(
+                self.model, self.vparams, self.vstate, draws["detect_u"], draws["meas_normals"],
+                draws["clutter_draw"], draws["clutter_u"], self.max_clutter,
+            )
         if not self.cfg.use_odometry:
             noisy = torch.zeros_like(noisy)
         return noisy, z, mask, labels, visible, detected

@@ -344,3 +344,4 @@ def test_simulation_kinect_isam2(tmp_path, monkeypatch):
     assert not ties.frames and ransac.calls == frames - 1
     assert len(tsim.sidebar_frames) == frames
     assert set(tsim.draws.frame(0)) == {"motion_normals", "resample_u"}  # no vehicle noise
+    assert tsim._vehicle_runner is None and tsim.vehicle_captures == tsim.vehicle_replays == 0

@@ -12,6 +12,8 @@ the OSPA distance table is computed by torch in the port, by numpy in the
 reference). Unsupported algorithms and inputs raise NotImplementedError
 (the graph backend, `isam2`, has its own file: test_torch_isam2_scan.py)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -30,7 +32,7 @@ from monorfs_tpu.slam import phd as jphd
 from monorfs_tpu_torch import cli, postanalysis
 from monorfs_tpu_torch.config import Config
 from monorfs_tpu_torch.io import Recording, World, parse_commands
-from monorfs_tpu_torch.sim import Simulation
+from monorfs_tpu_torch.sim import Simulation, vehicle
 from monorfs_tpu_torch.slam import phd
 
 PHD = dict(num_particles=4, max_components=32, max_measurements=33, gate_top=8,
@@ -164,6 +166,60 @@ def test_in_band_mode_switch():
         np.testing.assert_allclose(poses[i], np.tile(sim.waypoints[i][1], (3, 1)))
     assert np.ptp(poses[3], axis=0).max() > 0  # SLAM frames: motion noise spreads them
     assert sim.frames[4]["best"] == 0
+
+
+def _same(a, b):
+    """a equals b to the bit: arrays (and their dtypes), numbers, strings and
+    bytes, nested in lists, tuples and dataclasses."""
+    if dataclasses.is_dataclass(a):
+        assert type(a) is type(b)
+        for f in dataclasses.fields(a):
+            _same(getattr(a, f.name), getattr(b, f.name))
+    elif isinstance(a, (list, tuple)):
+        assert type(a) is type(b) and len(a) == len(b)
+        for x, y in zip(a, b):
+            _same(x, y)
+    elif isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    else:
+        assert a == b
+
+
+RUNNER_PHD = phd.PHDConfig(num_particles=4, max_components=64, max_measurements=48, gate_top=8,
+                           estimate_cap=16, beam_width=16, beam_candidates=4)
+
+
+@pytest.mark.parametrize("model,world,command_file,algorithm", [
+    ("PRM3D", "sim3d.world", "mov3d.in", "phd"),
+    ("Linear2D", "linear2d.world", "mov2d.in", "odometry"),
+    ("Linear1D", "linear1d.world", "mov1d.in", "odometry"),
+])
+def test_frame_runner_makes_the_eager_recording(tmp_path, model, world, command_file, algorithm):
+    """20 frames of a Simulation whose simulated vehicle goes through a
+    vehicle.FrameRunner (its CPU route, put where a card's Simulation builds
+    one) make the eager Simulation's Recording bit for bit. On the CPU no
+    Simulation builds a runner or counts a capture or a replay: not the
+    simulated one, not a replay of its recording."""
+    cfg = Config()
+    cfg.set_model_defaults(model)
+    commands = parse_commands(open(f"assets/{command_file}").read())[:20]
+    kw = dict(algorithm=algorithm, particles=4, dtype=torch.float32, seed=11, device="cpu",
+              phd_config=RUNNER_PHD if algorithm == "phd" else None)
+    eager = Simulation(cfg, World.from_file(f"assets/{world}"), commands, **kw)
+    runner = Simulation(cfg, World.from_file(f"assets/{world}"), commands, **kw)
+    runner._vehicle_runner = vehicle.FrameRunner(runner.model, runner.vparams, runner.vstate,
+                                                 runner.draws.frame(0), runner.max_clutter)
+    eager.run()
+    runner.run()
+    _same(runner.to_recording(), eager.to_recording())
+    assert eager._vehicle_runner is None
+    eager.save(tmp_path / "eager.zip")
+    rec = Recording.load(tmp_path / "eager.zip")
+    replay = Simulation(cfg, rec.world, [], algorithm="odometry", dtype=torch.float32, device="cpu",
+                        replay=rec).run()
+    assert replay._vehicle_runner is None and len(replay.waypoints) == 20
+    for sim in (eager, runner, replay):
+        assert sim.vehicle_captures == sim.vehicle_replays == 0
 
 
 class _Frames:

@@ -1,5 +1,7 @@
 """The port's simulated vehicle against monorfs_tpu.sim.vehicle, float32,
-with the draws taken from JAX's own key splits and handed to both."""
+with the draws taken from JAX's own key splits and handed to both; then the
+port's FrameRunner (update + measure on fixed tensors, a CUDA-graph replay
+on a card) on the CPU against update + measure."""
 
 import numpy as np
 import pytest
@@ -19,7 +21,7 @@ from monorfs_tpu_torch.config import Config
 from monorfs_tpu_torch.gm.gaussian import sqrt_cov
 from monorfs_tpu_torch.io.world import World, parse_commands
 from monorfs_tpu_torch.sim import vehicle
-from monorfs_tpu_torch.sim.simulation import model_for_config
+from monorfs_tpu_torch.sim.simulation import Simulation, model_for_config
 
 MAX_CLUTTER = 8
 
@@ -99,3 +101,48 @@ def test_vehicle_frames_match():
         np.testing.assert_allclose(tz.numpy()[live], np.asarray(jz)[live], rtol=1e-5, atol=1e-4)
         clutter_seen += int(live[l:].sum())
     assert clutter_seen > 0
+
+
+# the asset world and commands of each simulated model
+WORLDS = {"PRM3D": ("sim3d.world", "mov3d.in"), "Linear2D": ("linear2d.world", "mov2d.in"),
+          "Linear1D": ("linear1d.world", "mov1d.in")}
+RUNNER_FRAMES = 20
+
+
+def _cpu_simulation(name):
+    world_file, command_file = WORLDS[name]
+    cfg = Config()
+    cfg.set_model_defaults(name)
+    with open(f"assets/{command_file}") as f:
+        commands = parse_commands(f.read())[:RUNNER_FRAMES]
+    sim = Simulation(cfg, World.from_file(f"assets/{world_file}"), commands, algorithm="odometry",
+                     dtype=torch.float32, seed=3, device="cpu")
+    return sim, commands
+
+
+@pytest.mark.parametrize("name", list(WORLDS))
+def test_frame_runner_cpu_route_equals_update_then_measure(name):
+    """Over 20 frames of the model's asset world, the runner's CPU route hands
+    out update's pose and reading and measure's five outputs bit for bit,
+    from its own staged reading (equal to Simulation._tensor of the command);
+    what it handed out for frame t still equals its copy after later frames."""
+    sim, commands = _cpu_simulation(name)
+    model, params, odo = sim.model, sim.vparams, sim.model.pose.odo_dim
+    runner = vehicle.FrameRunner(model, params, sim.vstate, sim.draws.frame(0), sim.max_clutter)
+    assert runner.graph is None and not runner.cuda
+    state, pose, handed = sim.vstate, sim.vstate.pose, []
+    for i, cmd in enumerate(commands):
+        draws = sim.draws.frame(i)
+        reading = sim._tensor(cmd[:odo])
+        state, noisy = vehicle.update(model, params, state, reading, draws["odo_normals"])
+        want = (state.pose, noisy) + vehicle.measure(
+            model, params, state, draws["detect_u"], draws["meas_normals"], draws["clutter_draw"],
+            draws["clutter_u"], sim.max_clutter)
+        got = runner(pose, cmd[:odo], draws)
+        assert torch.equal(runner.reading, reading)
+        for g, w in zip(got, want, strict=True):
+            assert g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
+        pose = got[0]
+        handed.append((got, [t.clone() for t in got]))
+    for got, copies in handed:
+        assert all(torch.equal(g, c) for g, c in zip(got, copies))
